@@ -1,0 +1,80 @@
+"""Device dispatch for the hand-written kernels, and the dispatch counters.
+
+A wrapper here routes by the device of the tensors it is given: a CUDA
+tensor goes to the hand kernel (which raises on anything it does not take),
+a CPU tensor goes to the kernel's plain torch version, and any other device
+raises. There is no fallback from one to the other. Every call is counted
+under the path that actually ran (``"<kernel>:cuda"`` or
+``"<kernel>:plain"``) in :func:`dispatch_stats`; the timing backends count
+their own non-kernel paths (``dense``, ``oracle``) in the same registry.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from . import mapping_eval as _me
+
+_DISPATCH: dict[str, int] = {}
+_DISPATCH_LOCK = threading.Lock()
+
+
+def record_dispatch(path: str, n: int = 1) -> None:
+    with _DISPATCH_LOCK:
+        _DISPATCH[path] = _DISPATCH.get(path, 0) + n
+
+
+def dispatch_stats() -> dict[str, int]:
+    with _DISPATCH_LOCK:
+        return dict(_DISPATCH)
+
+
+def clear_dispatch_stats() -> None:
+    with _DISPATCH_LOCK:
+        _DISPATCH.clear()
+
+
+def route(x) -> str:
+    """``"cuda"`` for a CUDA tensor, ``"plain"`` for a CPU tensor."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    if x.device.type == "cuda":
+        return "cuda"
+    if x.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"no mapping-eval path for device {x.device}")
+
+
+def mapping_eval(t_proc, chip, ppos, n_chips: int,
+                 grid_order: str = "batch_major"):
+    """Pass B: t_proc (B, P, T), chip (P, T), ppos (P, T, W) ->
+    (end (B, P, T), free (B, P, C))."""
+    path = route(t_proc)
+    if path == "cuda":
+        out = _me.mapping_eval_cuda(t_proc, chip, ppos, n_chips, grid_order)
+    else:
+        _me.check_grid_order(grid_order)
+        out = _me.mapping_eval_plain(t_proc, chip, ppos, n_chips)
+    record_dispatch(f"mapping_eval:{path}")
+    return out
+
+
+def mapping_eval_fused(t_proc, sched_idx, chip, ppos, n_chips: int,
+                       grid_order: str | None = None):
+    """Pass A + B: ``t_proc`` is the UN-gathered (B, P, L) cost rows,
+    gathered per step via ``sched_idx`` (P, T). ``grid_order=None`` asks
+    the autotune probe on the card (:func:`default_grid_order` on CPU)."""
+    path = route(t_proc)
+    if grid_order is None:
+        grid_order = _me.autotune_grid_order(t_proc, sched_idx, chip, ppos,
+                                             n_chips)
+    if path == "cuda":
+        out = _me.mapping_eval_fused_cuda(t_proc, sched_idx, chip, ppos,
+                                          n_chips, grid_order)
+    else:
+        _me.check_grid_order(grid_order)
+        out = _me.mapping_eval_fused_plain(t_proc, sched_idx, chip, ppos,
+                                           n_chips)
+    record_dispatch(f"mapping_eval_fused:{path}")
+    return out

@@ -1,0 +1,90 @@
+"""The port stands alone: its main path loads no JAX and no module of the
+JAX package, no file of it imports either, and its entry points run on
+CUDA by default — raising, not falling back to the CPU, where there is
+no CUDA device."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_main_path_imports_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch.core.compass, repro_torch.core.torch_evaluator\n"
+        "import repro_torch.kernels.ops, repro_torch.core.observability\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imports(path: str):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_no_file_of_the_port_imports_jax_or_the_reference():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [f"{os.path.relpath(p, ROOT)}:{line}: {mod}"
+           for p in files for line, mod in _imports(p) if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    from repro_torch.core import compass, timing, torch_evaluator
+    from repro_torch.core.hardware import make_hardware
+    from repro_torch.core.streams import RequestStream
+    from repro_torch.core.workload import (
+        LLMSpec,
+        build_execution_graph,
+        prefill_request,
+    )
+
+    spec = LLMSpec("tiny", 512, 8, 8, 64, 2048, 32000, 8)
+    hw = make_hardware(64, "M", tensor_parallel=2)
+    batches = [[prefill_request(64), prefill_request(128)]]
+    g = build_execution_graph(spec, batches[0], 2, tp=2, n_blocks=1)
+    scenario = compass.Scenario("t", spec, target_tops=64, n_blocks=1,
+                                stream=RequestStream.fixed_batches(batches))
+    calls = [
+        lambda: timing.resolve_device(None),
+        lambda: compass.search_mapping(spec, batches, hw, [2], n_blocks=1),
+        lambda: compass.explore(scenario, bo_iters=1, bo_init=1),
+        lambda: torch_evaluator.PopulationEvaluator(
+            g, timing.get_cost_tables(g, ("t",), hw), hw),
+        lambda: timing.FusedTimingBackend().pass_b(
+            [[1.0]], [[0]], [[[1]]], 1),
+    ]
+    if torch.cuda.is_available():
+        assert timing.resolve_device(None) == torch.device("cuda")
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert timing.resolve_device("cpu") == torch.device("cpu")
