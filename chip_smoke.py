@@ -6,24 +6,46 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases — any failure raises and the script exits non-zero:
 
 1. build   compile the hand-written CUDA kernels from
-           src/repro_torch/kernels/csrc with nvcc (sm_90a) and load them;
-2. parity  each kernel against its plain torch version on the card, at the
-           main path's shapes (llama3.2-3b graph: rows 4, M 80, T 320;
-           B = 3; P in {64, 2048}; both grid orders): bitwise; and both
-           against the float64 numpy reference at 1e-5 relative;
-3. main    ``explore`` on the canonical llama3.2-3b prefill scenario with the
-           default (fused) backend and then with ``kernel``: the same best
-           score, each kernel launched, no plain path dispatched, the best
-           mapping re-priced on the card equal to the numpy oracle at 1e-4;
-           then the golden goodput scenario (orca, joint co-search, the fold
-           on the card) against tests/goldens/search_goldens.json;
-4. times   CUDA-event times of each kernel and its plain version at
-           P in {64, 512, 2048, 4096}, beside the least time the card could
-           take for the same bytes (3.35 TB/s) or operations (67 TFLOP/s
-           float32) and the measured time of one (b, p) chain alone;
-5. profile one hardware point's mapping search (the main path's GA) under
-           ``torch.profiler``: wall, device busy time and share, and the
-           kernels that take the device time.
+           src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc per
+           source, all started together, and load them;
+2. parity  each kernel against its plain torch version on the card. The
+           mapping-eval kernels at the search path's shapes (llama3.2-3b
+           graph: rows 4, M 80, T 320; B = 3; P in {64, 2048}; both grid
+           orders): bitwise, and both against the float64 numpy reference
+           at 1e-5 relative. The attention kernels at the shapes of
+           tests/test_kernels.py and at llama3.2-3b's (decode B 8, Hq 24,
+           Hkv 8, D 128, S 1024, seeded lengths; flash B 2, L 512 causal,
+           and Lq 100 < Lk 512): 2e-5 in float32, 2e-2 in bfloat16;
+3. main    the search path: ``explore`` on the canonical llama3.2-3b
+           prefill scenario with the default (fused) backend and then with
+           ``kernel``: the same best score, each kernel launched, no plain
+           path dispatched, the best mapping re-priced on the card equal to
+           the numpy oracle at 1e-4; then the golden goodput scenario
+           (orca, joint co-search, the fold on the card) against
+           tests/goldens/search_goldens.json;
+4. serve   the serving path at the full width of llama3.2-3b (28 layers,
+           seeded random float32 weights): ``ServingEngine`` serves 8
+           requests (prompts of 64-512 tokens, 16 new tokens each) under
+           vllm, orca and chunked_prefill, every decode through the decode
+           kernel (28 launches per decode iteration, no plain dispatch);
+           one more orca run under ``torch.profiler`` (device busy share,
+           time in the decode kernel and in matrix products);
+           one scheduler's token streams replayed with teacher forcing
+           through ``impl="eager"`` and ``impl="kernel"`` (logits within
+           1e-4 of the largest, argmax equal to the engine's token wherever
+           the top-two gap exceeds that); then ``prefill`` of 2 prompts of
+           512 tokens through the flash kernel (28 launches), its logits
+           and caches against ``impl="eager"`` and against ``extend``;
+5. times   CUDA-event times of each kernel, its plain version and, for the
+           attention kernels, ``torch.nn.functional.scaled_dot_product_
+           attention`` on the same inputs, beside the least time the card
+           could take for the same bytes (3.35 TB/s) or operations
+           (67 TFLOP/s float32, 989 TFLOP/s bfloat16): the mapping-eval
+           kernels at P in {64, 512, 2048, 4096} (with one (b, p) chain
+           alone), decode at S in {1024, 8192}, flash at L in {512, 2048};
+6. profile one hardware point's mapping search (the search path's GA)
+           under ``torch.profiler``: wall, device busy time and share, and
+           the kernels that take the device time.
 
 ``--phases build,parity`` runs a prefix of the phases only and then prints
 no result line. The full run prints, last, the card's name and power limit,
@@ -41,16 +63,42 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "parity", "main", "times", "profile")
+PHASES = ("build", "parity", "main", "serve", "times", "profile")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-SOURCE = "src/repro_torch/kernels/csrc/mapping_eval.cu"
-# kernel -> the body of the TPU kernel it replaces
+BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16 tensor cores, dense
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCE = f"{CSRC}/mapping_eval.cu"
+# search-path kernel -> the body of the TPU kernel it replaces
 KERNELS = {
     "mapping_eval": "src/repro/kernels/mapping_eval.py:60",
     "mapping_eval_fused": "src/repro/kernels/mapping_eval.py:135",
 }
+# serving-path kernel -> (its source, the body of the TPU kernel it replaces)
+ATTN_KERNELS = {
+    "decode_attention": (f"{CSRC}/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:27"),
+    "flash_attention": (f"{CSRC}/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:24"),
+}
+ATTN_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 MAIN_POP, MAIN_GENS = 512, 16
+SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
+SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
+SERVE_CHUNK = 64
+LOGIT_REL = 1e-4               # teacher-forced logits: of the largest |logit|
+# attention shapes: (B, Hq, Hkv, S, D) for decode, (B, Hq, Hkv, Lq, Lk, D,
+# causal) for flash; the first of each list is the serving path's
+DECODE_MAIN = (8, 24, 8, 1024, 128)
+FLASH_MAIN = (2, 24, 8, 512, 512, 128, True)
+DECODE_PARITY = [DECODE_MAIN, (2, 8, 2, 257, 64), (1, 4, 4, 96, 32),
+                 (3, 4, 1, 130, 64)]
+FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
+                (1, 4, 4, 64, 64, 64, True), (2, 8, 2, 96, 160, 64, True),
+                (1, 6, 3, 33, 57, 32, False), (1, 2, 1, 128, 128, 128, True)]
+DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128)]
+FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
+               (2, 24, 8, 2048, 2048, 128, True)]
 PARITY_POPS = (64, 2048)
 TIME_POPS = (64, 512, 2048, 4096)
 
@@ -153,21 +201,128 @@ def with_gathered(inp: dict) -> dict:
         inp["t_proc"], inp["sched_idx"]).contiguous())
 
 
+def decode_inputs(shape, dtype: str, seed: int) -> dict:
+    """Seeded decode inputs on the card: q [B, Hq, D], caches
+    [B, S, Hkv, D], lengths [B] in 1..S."""
+    import numpy as np
+    import torch
+
+    b, hq, hkv, s, d = shape
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def normal(*sh):
+        return torch.as_tensor(rng.standard_normal(sh, dtype=np.float32),
+                               device="cuda").to(dt)
+
+    return {"q": normal(b, hq, d), "k": normal(b, s, hkv, d),
+            "v": normal(b, s, hkv, d),
+            "lengths": torch.as_tensor(rng.integers(1, s + 1, size=b),
+                                       dtype=torch.int32, device="cuda")}
+
+
+def flash_inputs(shape, dtype: str, seed: int) -> dict:
+    """Seeded flash inputs on the card: q [B, Hq, Lq, D], k/v
+    [B, Hkv, Lk, D]."""
+    import numpy as np
+    import torch
+
+    b, hq, hkv, lq, lk, d, causal = shape
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def normal(*sh):
+        return torch.as_tensor(rng.standard_normal(sh, dtype=np.float32),
+                               device="cuda").to(dt)
+
+    return {"q": normal(b, hq, lq, d), "k": normal(b, hkv, lk, d),
+            "v": normal(b, hkv, lk, d), "causal": causal}
+
+
+def run_attention(name: str, inp: dict, how: str):
+    """One call of an attention kernel (``cuda``), its plain version
+    (``plain``) or the PyTorch library call for the same function
+    (``library``: ``scaled_dot_product_attention``, timed here only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = inp["q"], inp["k"], inp["v"]
+    if name == "decode_attention":
+        lengths = inp["lengths"]
+        if how == "cuda":
+            return da.decode_attention_cuda(q, k, v, lengths)
+        if how == "plain":
+            return da.decode_attention_plain(q, k, v, lengths)
+        mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+    causal = inp["causal"]
+    if how == "cuda":
+        return fa.flash_attention_cuda(q, k, v, causal)
+    if how == "plain":
+        return fa.flash_attention_plain(q, k, v, causal)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def attention_bound(name: str, inp: dict) -> dict:
+    """Bytes and operations the function needs on these inputs (each input
+    read once, each output written once; decode reads only the live K/V
+    rows, flash does only the visible (query, key) pairs), and the least
+    time the card could take for them."""
+    q, k = inp["q"], inp["k"]
+    item = q.element_size()
+    if name == "decode_attention":
+        b, hq, d = q.shape
+        s, hkv = k.shape[1], k.shape[2]
+        live = int(inp["lengths"].clamp(max=s).sum())
+        nbytes = live * hkv * d * 2 * item + 2 * q.numel() * item + 4 * b
+        ops = 4 * hq * d * live
+    else:
+        b, hq, lq, d = q.shape
+        hkv, lk = k.shape[1], k.shape[2]
+        if inp["causal"]:
+            off = lk - lq
+            pairs = sum(min(lk, max(0, i + off + 1)) for i in range(lq))
+        else:
+            pairs = lq * lk
+        nbytes = (2 * q.numel() + 2 * b * hkv * lk * d) * item
+        ops = 4 * b * hq * d * pairs
+    peak = F32_OPS_PER_S if q.dtype.itemsize == 4 else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
 
 
 def phase_build() -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mapping_eval as me
 
+    sources = ("mapping_eval.cu", "decode_attention.cu", "flash_attention.cu")
     t0 = time.perf_counter()
-    found = build.library_path("mapping_eval.cu").exists()
-    lib = build.compile_source("mapping_eval.cu")
-    me._lib()
-    rec = {"phase": "build", "source": SOURCE, "library": lib.name,
-           "compiled_now": not found, "seconds": time.perf_counter() - t0}
+    found = {src: build.library_path(src).exists() for src in sources}
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+        libs = list(pool.map(build.compile_source, sources))
+    for mod in (me, da, fa):
+        mod._lib()
+    rec = {"phase": "build", "sources": [f"{CSRC}/{s}" for s in sources],
+           "libraries": [lib.name for lib in libs],
+           "compiled_now": [not found[s] for s in sources],
+           "seconds": time.perf_counter() - t0}
     emit(rec)
     return rec
 
@@ -224,6 +379,37 @@ def phase_parity(ev) -> dict:
               "W": int(inp["ppos"].shape[-1]), "C": inp["n_chips"],
               "L": int(inp["t_proc"].shape[-1]), "bitwise": True,
               "ref_rtol": 1e-5, "ref_individuals": int(sel.size)})
+    return errs
+
+def phase_attention_parity() -> dict:
+    """Each attention kernel against its plain version on the same inputs;
+    returns the largest float32 error at the serving path's shapes."""
+    import torch
+
+    errs = {}
+    for name, shapes, make in (("decode_attention", DECODE_PARITY,
+                                decode_inputs),
+                               ("flash_attention", FLASH_PARITY,
+                                flash_inputs)):
+        for i, shape in enumerate(shapes):
+            for dtype, tol in ATTN_TOLS.items():
+                inp = make(shape, dtype, seed=i)
+                got = run_attention(name, inp, "cuda")
+                want = run_attention(name, inp, "plain")
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"{name} {shape} {dtype}: {got.dtype} {tuple(got.shape)}"
+                      f" vs {want.dtype} {tuple(want.shape)}")
+                err = float((got.float() - want.float()).abs().max())
+                check(torch.isfinite(got).all().item() and err <= tol,
+                      f"{name} {shape} {dtype} differs from its plain "
+                      f"version: max abs err {err} > {tol}")
+                if i == 0 and dtype == "float32":
+                    errs[name] = err
+                emit({"phase": "parity", "kernel": name,
+                      "shape": list(shape), "dtype": dtype,
+                      "max_abs_err": err, "tol": tol,
+                      "serving_shape": i == 0})
     return errs
 
 
@@ -364,6 +550,251 @@ def phase_main(scenario, device) -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------
+# the serving path
+# --------------------------------------------------------------------------
+
+
+def _serve_requests(vocab: int):
+    """8 requests, prompt lengths 64-512 and tokens from numpy seed 0,
+    16 new tokens each, two arriving per iteration."""
+    import numpy as np
+
+    from repro_torch.serving import ServeRequest
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, size=SERVE_REQUESTS)
+    return [ServeRequest(i, rng.integers(0, vocab, size=int(n)).tolist(),
+                         SERVE_NEW, arrived_iter=i // 2)
+            for i, n in enumerate(lens)]
+
+
+def _engine_run(params, cfg, sched_name: str, device) -> tuple[dict, dict]:
+    """One ``ServingEngine.run``; returns its record and the token
+    streams {rid: (prompt, generated)}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SCHEDULERS
+    from repro_torch.serving.engine import ServingEngine, summarize
+
+    sched = (SCHEDULERS[sched_name](chunk=SERVE_CHUNK)
+             if sched_name == "chunked_prefill" else SCHEDULERS[sched_name]())
+    eng = ServingEngine(params, cfg, max_batch=SERVE_REQUESTS,
+                        max_len=SERVE_MAX_LEN, device=device)
+    reqs = _serve_requests(cfg.vocab)
+    torch.cuda.synchronize()
+    ops.clear_dispatch_stats()                     # counts to 0 just before
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run(reqs, sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, disp = ops.launch_counts(), ops.dispatch_stats()  # just after
+    del eng
+    check(not res.truncated and len(res.finished) == SERVE_REQUESTS,
+          f"{sched_name}: {len(res.finished)} of {SERVE_REQUESTS} requests "
+          f"finished")
+    check(all(len(r.generated) == SERVE_NEW for r in res.finished),
+          f"{sched_name}: a request did not get {SERVE_NEW} tokens")
+    n_dec = sum(1 for st in res.stats if st.n_decode)
+    want = n_dec * cfg.n_layers
+    check(launches["decode_attention"] == want and launches["flash_attention"]
+          == 0, f"{sched_name}: launches {launches}, expected {want} decode "
+          f"launches ({n_dec} decode iterations x {cfg.n_layers} layers)")
+    check(disp == {"decode_attention:cuda": want},
+          f"{sched_name}: unexpected dispatch paths {disp}")
+    summ = summarize(res.finished, res.stats)
+    out_tokens = summ["output_tokens"]
+    rec = {"phase": "serve", "run": "engine", "arch": SERVE_ARCH,
+           "scheduler": sched_name, "wall_s": wall,
+           "tokens_per_s": out_tokens / wall, "output_tokens": out_tokens,
+           "prefill_tokens": sum(st.n_prefill_tokens for st in res.stats),
+           "iterations": len(res.stats), "decode_iterations": n_dec,
+           "engine_seconds": summ["total_seconds"],
+           "mean_slots_used": summ["mean_slots_used"],
+           "launches": launches, "dispatches": disp}
+    emit(rec)
+    return rec, {r.rid: (r.prompt, r.generated) for r in res.finished}
+
+
+def _engine_profile(params, cfg, device) -> dict:
+    """One more orca run of the engine under ``torch.profiler`` (its
+    launches are not the path's count): device busy share, and the device
+    time in the decode kernel, in matrix products and in the rest."""
+    from repro_torch.serving import OrcaScheduler
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(params, cfg, max_batch=SERVE_REQUESTS,
+                        max_len=SERVE_MAX_LEN, device=device)
+    reqs = _serve_requests(cfg.vocab)
+    prof, kern = _profiled(lambda: eng.run(reqs, OrcaScheduler()))
+    del eng
+
+    def device_ms(pred) -> float:
+        return sum(_dev_us(e) for e in kern if pred(e.key.lower())) / 1e3
+
+    rec = {"phase": "serve", "run": "profile", "scheduler": "orca", **prof,
+           "decode_kernel_ms": device_ms(lambda k: "decode_attention" in k),
+           "gemm_ms": device_ms(lambda k: "gemm" in k or "xmma" in k
+                                or "cutlass" in k)}
+    rec["other_device_ms"] = (prof["device_busy_ms"] - rec["decode_kernel_ms"]
+                              - rec["gemm_ms"])
+    emit(rec)
+    return rec
+
+def _replay(params, cfg, streams: dict, device) -> dict:
+    """Teacher forcing: each request's prompt through ``prefill`` and its
+    generated tokens through ``decode_step``, once with ``impl="kernel"``
+    and once with ``impl="eager"``. At every step the two logits agree
+    within LOGIT_REL of the largest, and the eager argmax is the engine's
+    token wherever the eager top-two gap exceeds that tolerance."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    impls = ("kernel", "eager")
+    worst, checked, skipped = 0.0, 0, 0
+    t0 = time.perf_counter()
+    for rid, (prompt, gen) in sorted(streams.items()):
+        toks = torch.as_tensor([prompt], device=device)
+        state = {}
+        for impl in impls:
+            cache = init_cache(cfg, 1, SERVE_MAX_LEN, torch.float32, device)
+            state[impl] = prefill(params, cfg, toks, cache, impl=impl,
+                                  device=device)
+        for j, want in enumerate(gen):
+            got, ref = state["kernel"][0][0], state["eager"][0][0]
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            check(err <= LOGIT_REL * scale,
+                  f"request {rid} step {j}: kernel vs eager logits differ by "
+                  f"{err} > {LOGIT_REL} x {scale}")
+            worst = max(worst, err / scale)
+            top2 = torch.topk(ref, 2).values
+            if float(top2[0] - top2[1]) > LOGIT_REL * scale:
+                check(int(ref.argmax()) == want,
+                      f"request {rid} step {j}: eager argmax "
+                      f"{int(ref.argmax())} != engine token {want}")
+                checked += 1
+            else:
+                skipped += 1
+            if j + 1 < len(gen):
+                tok = torch.as_tensor([want], device=device)
+                for impl in impls:
+                    state[impl] = decode_step(params, cfg, tok,
+                                              state[impl][1], impl=impl,
+                                              device=device)
+    torch.cuda.synchronize()
+    rec = {"phase": "serve", "run": "teacher_forcing", "requests":
+           len(streams), "steps": checked + skipped,
+           "argmax_checked": checked, "argmax_skipped_small_gap": skipped,
+           "max_rel_logit_err": worst, "tol": LOGIT_REL,
+           "wall_s": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+def _prefill_check(params, cfg, device) -> dict:
+    """``prefill`` of 2 prompts of 512 tokens through the flash kernel
+    (one launch per layer), against ``impl="eager"`` and against
+    ``extend`` from an empty cache: logits and K/V caches within
+    LOGIT_REL of the largest reference value."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import extend, init_cache, prefill
+
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 512)),
+                           device=device)
+    runs = {}
+    for label in ("kernel", "eager", "extend"):
+        cache = init_cache(cfg, 2, SERVE_MAX_LEN, torch.float32, device)
+        torch.cuda.synchronize()
+        if label == "kernel":
+            ops.clear_dispatch_stats()             # counts to 0 just before
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if label == "extend":
+            logits, cache = extend(params, cfg, toks, cache, impl="eager",
+                                   device=device)
+        else:
+            logits, cache = prefill(params, cfg, toks, cache, impl=label,
+                                    device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if label == "kernel":
+            launches, disp = ops.launch_counts(), ops.dispatch_stats()
+        runs[label] = (logits, cache, wall)
+    want = cfg.n_layers
+    check(launches["flash_attention"] == want
+          and disp == {"flash_attention:cuda": want},
+          f"prefill: launches {launches}, dispatches {disp}; expected {want} "
+          f"flash_attention:cuda")
+    errs = {}
+    k_logits, k_cache, _ = runs["kernel"]
+    for label in ("eager", "extend"):
+        logits, cache, _ = runs[label]
+        scale = float(logits.abs().max())
+        err = float((k_logits - logits).abs().max())
+        check(torch.isfinite(k_logits).all().item()
+              and err <= LOGIT_REL * scale,
+              f"prefill logits: kernel vs {label} differ by {err}")
+        c_err = 0.0
+        for kc, rc in zip(k_cache, cache):
+            check(torch.equal(kc["len"], rc["len"]), "cache lengths differ")
+            for key in ("k", "v"):
+                e = float((kc[key] - rc[key]).abs().max())
+                m = float(rc[key].abs().max())
+                check(e <= LOGIT_REL * m, f"prefill cache {key}: kernel vs "
+                      f"{label} differ by {e} (largest {m})")
+                c_err = max(c_err, e / m)
+        errs[label] = {"max_rel_logit_err": err / scale,
+                       "max_rel_cache_err": c_err}
+    rec = {"phase": "serve", "run": "prefill", "batch": 2, "prompt": 512,
+           "wall_s": {label: runs[label][2] for label in runs},
+           "tokens_per_s": {label: 2 * 512 / runs[label][2] for label in runs},
+           "launches": launches, "dispatches": disp, "vs": errs,
+           "tol": LOGIT_REL}
+    emit(rec)
+    return rec
+
+
+def phase_serve(device) -> dict:
+    """The serving path at the full width of llama3.2-3b."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import init_model
+
+    cfg = get(SERVE_ARCH).model
+    check(cfg.n_layers == SERVE_LAYERS, f"{SERVE_ARCH} has {cfg.n_layers} "
+          "layers")
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    emit({"phase": "serve", "run": "init", "arch": SERVE_ARCH,
+          "params": n_params, "bytes": 4 * n_params,
+          "seconds": time.perf_counter() - t0})
+    runs, streams = {}, None
+    for name in ("vllm", "orca", "chunked_prefill"):
+        runs[name], got = _engine_run(params, cfg, name, device)
+        streams = streams or got
+    profile = _engine_profile(params, cfg, device)
+    replay = _replay(params, cfg, streams, device)
+    pre = _prefill_check(params, cfg, device)
+    del params
+    torch.cuda.empty_cache()
+    return {"engine": runs, "profile": profile, "replay": replay,
+            "prefill": pre,
+            "launches": {
+                "decode_attention": sum(r["launches"]["decode_attention"]
+                                        for r in runs.values()),
+                "flash_attention": pre["launches"]["flash_attention"]}}
+
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
 
@@ -416,14 +847,76 @@ def phase_times(ev, runs: dict) -> dict:
     return at_main
 
 
-def phase_profile(scenario) -> dict:
-    """One BO point's ``hardware_objective`` under ``torch.profiler``. The
-    device busy time is the sum of CUDA kernel times (one stream, so no
-    overlap); idle share = 1 - busy / wall."""
-    import numpy as np
+def phase_attention_times(serve: dict) -> dict:
+    """CUDA-event times of each attention kernel, its plain version and the
+    library call on the same inputs (library and kernel in turns: library,
+    kernel, kernel, library), beside the bound. Returns the records at the
+    serving path's shapes in float32."""
+    at_main = {}
+    for name, shapes, make in (("decode_attention", DECODE_TIMES,
+                                decode_inputs),
+                               ("flash_attention", FLASH_TIMES,
+                                flash_inputs)):
+        for i, shape in enumerate(shapes):
+            for dtype in ATTN_TOLS:
+                inp = make(shape, dtype, seed=100 + i)
+                t = {how: [] for how in ("cuda", "library")}
+                for how in ("library", "cuda", "cuda", "library"):
+                    t[how].append(_time_ms(
+                        lambda how=how: run_attention(name, inp, how), 20))
+                rec = {"kernel": name, "shape": list(shape), "dtype": dtype,
+                       "kernel_ms": sum(t["cuda"]) / 2,
+                       "library_ms": sum(t["library"]) / 2,
+                       "kernel_ms_runs": t["cuda"],
+                       "library_ms_runs": t["library"],
+                       "plain_ms": _time_ms(
+                           lambda: run_attention(name, inp, "plain"), 3, 1),
+                       "launches_on_path": serve["launches"][name],
+                       **attention_bound(name, inp)}
+                rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+                rec["kernel_over_library"] = \
+                    rec["kernel_ms"] / rec["library_ms"]
+                emit(rec)
+                if i == 0 and dtype == "float32":
+                    at_main[name] = rec
+    return at_main
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def _profiled(fn) -> tuple[dict, list]:
+    """``fn()`` under ``torch.profiler``: wall, device busy time (the sum
+    of CUDA kernel times: one stream, so no overlap), idle share
+    (1 - busy / wall), launches and the kernels that take the most device
+    time; and the profiler's per-kernel records."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(_dev_us(e) for e in kern) / 1e3
+    top = sorted(kern, key=_dev_us, reverse=True)[:8]
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": (1.0 - busy_ms / wall_ms) if kern else None,
+           "kernel_launches": sum(e.count for e in kern),
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "ms": _dev_us(e) / 1e3} for e in top]}
+    if not kern:
+        rec["note"] = "the profiler saw no device time"
+    return rec, kern
+
+
+def phase_profile(scenario) -> dict:
+    """One BO point's ``hardware_objective`` under ``torch.profiler``."""
+    import numpy as np
 
     from repro_torch.core import timing
     from repro_torch.core.bo import random_point
@@ -434,30 +927,10 @@ def phase_profile(scenario) -> dict:
     ga = GAConfig(population=MAIN_POP, generations=MAIN_GENS, seed=0)
     hardware_objective(scenario, point, ga)        # warm: tables, probe
     timing.clear_timing_backend_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        hardware_objective(scenario, point, ga)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    calls = sum(timing.timing_backend_stats()["dispatches"].get(k, 0)
-                for k in ("mapping_eval_fused:cuda",))
-
-    def dev_us(e) -> float:
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0.0)
-
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kern) / 1e3
-    top = sorted(kern, key=dev_us, reverse=True)[:8]
-    rec = {"phase": "profile", "wall_ms": wall_ms, "evaluator_calls": calls,
-           "device_busy_ms": busy_ms,
-           "device_idle_share": (1.0 - busy_ms / wall_ms) if kern else None,
-           "kernel_launches": sum(e.count for e in kern),
-           "top_kernels": [{"name": e.key[:80], "count": e.count,
-                            "ms": dev_us(e) / 1e3} for e in top]}
-    if not kern:
-        rec["note"] = "the profiler saw no device time"
+    prof, _ = _profiled(lambda: hardware_objective(scenario, point, ga))
+    calls = timing.timing_backend_stats()["dispatches"].get(
+        "mapping_eval_fused:cuda", 0)
+    rec = {"phase": "profile", **prof, "evaluator_calls": calls}
     emit(rec)
     return rec
 
@@ -505,12 +978,17 @@ def main(argv=None) -> int:
     scenario = canonical_scenario()
     ev = canonical_evaluator(scenario, device)
     errs = phase_parity(ev)
+    errs.update(phase_attention_parity())
     if "main" not in phases:
         return 0
     runs = phase_main(scenario, device)
+    if "serve" not in phases:
+        return 0
+    serve = phase_serve(device)
     if "times" not in phases:
         return 0
     at_main = phase_times(ev, runs)
+    at_main.update(phase_attention_times(serve))
     if "profile" not in phases:
         return 0
     phase_profile(scenario)
@@ -531,6 +1009,14 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
+    for name, (source, replaces) in ATTN_KERNELS.items():
+        rec = at_main[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": serve["launches"][name],
+            "max_abs_err": errs[name], "ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,26 @@
+"""Architecture configs of the port — ``--arch <id>`` registry."""
+from .base import (  # noqa: F401
+    SHAPES,
+    ArchConfig,
+    Shape,
+    all_archs,
+    get,
+    llm_spec,
+    register,
+)
+
+_LOADED = False
+
+
+def _load_all():
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    from . import (  # noqa: F401
+        glm4_9b,
+        llama3_2_3b,
+        paper_models,
+        qwen1_5_0_5b,
+        qwen2_1_5b,
+    )

@@ -4,13 +4,16 @@ Each function reads attributes by name from any object that has them
 (duck typing), so a mapping population, a set of cost tables or a hardware
 point made elsewhere — for example by the JAX reference package in a
 parity test — becomes the port's own object with copied arrays and no
-reference to the source. Nothing here imports the source's package.
+reference to the source; a model's parameter tree and caches (nested
+dicts and lists of numpy arrays) become the port's model and caches.
+Nothing here imports the source's package.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .encoding import MappingEncoding, StackedPopulation
 from .evaluator import CostTables
@@ -63,3 +66,54 @@ def spec_from(obj) -> LLMSpec:
 def request_from(obj) -> Request:
     """``kind``, ``q_len`` and ``kv_len`` of one batch entry."""
     return Request(str(obj.kind), int(obj.q_len), int(obj.kv_len))
+
+
+def _flatten(tree, prefix=""):
+    """Dotted paths of a nested dict/list tree of arrays, the way
+    :meth:`torch.nn.Module.named_parameters` names them."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for key, sub in items:
+        yield from _flatten(sub, f"{prefix}.{key}" if prefix else str(key))
+
+
+def params_from_jax(tree, cfg, device, dtype=torch.float32):
+    """The port's model for ``cfg`` holding the weights of a JAX parameter
+    tree (``repro.models.init_model``'s pytree with numpy leaves), copied
+    onto ``device`` (``None`` = CUDA). Every leaf path must name a
+    parameter of the port's model with the same shape, and every parameter
+    must be given."""
+    from ..models.transformer import Transformer
+    from .timing import resolve_device
+
+    leaves = dict(_flatten(tree))
+    with torch.no_grad():
+        model = Transformer(cfg, dtype=dtype, device=resolve_device(device))
+        params = dict(model.named_parameters())
+        if set(params) != set(leaves):
+            raise ValueError(
+                f"parameter trees differ: only in the source "
+                f"{sorted(set(leaves) - set(params))}, only in the port "
+                f"{sorted(set(params) - set(leaves))}")
+        for name, p in params.items():
+            src = torch.tensor(np.asarray(leaves[name]))
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(src)
+    return model
+
+
+def cache_from_jax(caches, device):
+    """A list of per-layer cache dicts with numpy leaves (``k``, ``v``,
+    ``len``) as the port's caches on ``device`` (``None`` = CUDA)."""
+    from .timing import resolve_device
+
+    dev = resolve_device(device)
+    return [{k: torch.tensor(np.asarray(v), device=dev)
+             for k, v in layer.items()} for layer in caches]

@@ -8,12 +8,15 @@ stack: :func:`cache_stats` merges
   (``dense``, ``oracle``, ``mapping_eval[_fused]:cuda`` or ``:plain``);
 * the device-resident stacked cost-table buffers
   (``torch_evaluator.device_table_cache_stats``) and their bytes per
-  device.
+  device;
+* the process-wide serving counters (``serving.stats``): engine runs,
+  iterations, prefill/decode tokens, peak slots and queue depth.
 
 The result is JSON-serialisable.
 """
 from __future__ import annotations
 
+from ..serving import stats as serving_stats
 from . import timing, torch_evaluator
 
 
@@ -25,4 +28,5 @@ def cache_stats() -> dict:
         "device_tables": torch_evaluator.device_table_cache_stats(),
         "device_resident_bytes": per_device,
         "device_resident_bytes_total": sum(per_device.values()),
+        "serving": serving_stats.snapshot(),
     }

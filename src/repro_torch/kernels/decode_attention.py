@@ -1,0 +1,159 @@
+"""GQA KV-cache decode attention on the card: one hand-written CUDA kernel
+and its plain torch version.
+
+One new token per sequence attends over its cache,
+
+    o[b, h] = softmax_t(q[b, h] . k[b, t, h // rep] * scale) @ v[b, t, h // rep]
+
+over the positions t < lengths[b] (clamped to the cache length S). The
+kernel ``decode_attention_kernel`` in ``csrc/decode_attention.cu`` replaces
+the TPU kernel ``repro/kernels/decode_attention.py::decode_attention``
+(body ``_decode_kernel``). Like it, one program serves all query heads of a
+kv group, so each K/V row of the cache is read once per sequence; running
+max, sum and accumulator are float32, a masked score is -1e30 and its weight
+is zeroed after the exp, and the output divides by the sum where it is not
+0. What bounds it on an H100 is bytes: the live K/V rows,
+sum(len) * Hkv * D * 2 * itemsize, at 3.35 TB/s. This first version stages
+one 32-position tile at a time in shared memory with no overlap of loads
+and compute and no split over S, so at small batch it runs one block per
+(sequence, kv head) and is far from that bound; split-S and asynchronous
+copies are later work.
+
+Beside the kernel: its plain torch version (the CPU path and the card's
+parity partner) and a launch counter (:data:`LAUNCHES`), bumped once per
+launch and nowhere else. :mod:`repro_torch.kernels.ops` dispatches between
+the two by the device of the tensors it is given.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from . import build
+
+_SOURCE = "decode_attention.cu"
+NEG_INF = -1e30
+MAX_HEAD_DIM = 576
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = {"decode_attention": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def launch_counts() -> dict[str, int]:
+    with _LAUNCH_LOCK:
+        return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES["decode_attention"] = 0
+
+
+def _scale(d: int, scale: float | None) -> float:
+    return float(1.0 / (d ** 0.5)) if scale is None else float(scale)
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, scale=None):
+    """q [B, Hq, D], caches [B, S, Hkv, D], lengths [B] -> [B, Hq, D] in
+    q's dtype: the kernel's arithmetic as torch ops, float32 throughout
+    (one pass over all S positions; the kernel's online rescaling gives the
+    same values up to float32 rounding)."""
+    b, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hkv
+    qg = q.float().reshape(b, hkv, rep, d)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, k_cache.float()) \
+        * _scale(d, scale)
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[None, :] < lengths.to(q.device)[:, None])[:, None, None, :]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
+    o = o / torch.where(l == 0, 1.0, l)
+    return o.reshape(b, hq, d).to(q.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library (built on first use), with its C signatures."""
+    lib = build.load(_SOURCE)
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.decode_attention_launch.argtypes = (
+        [ci] + [vp] * 5 + [ci] * 5 + [ctypes.c_float] + [ll] * 8 + [vp])
+    lib.decode_attention_launch.restype = ci
+    lib.decode_attention_error_string.argtypes = [ci]
+    lib.decode_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_operand(name, x, dtype, device, dims):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got "
+                        f"{type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if x.dim() != dims:
+        raise ValueError(f"{name} must have {dims} dimensions, got "
+                         f"{tuple(x.shape)}")
+    if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:-1]) \
+            or x.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous last dimension, "
+                         f"strides that are multiples of 8 elements and a "
+                         f"16-byte aligned start; got strides {x.stride()}")
+
+
+def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
+    """Launch ``decode_attention_kernel`` on the current stream (no sync):
+    q [B, Hq, D], k/v caches [B, S, Hkv, D] (float32 or bfloat16, one
+    dtype, D a multiple of 8 up to 576, D contiguous), lengths [B] int32
+    -> [B, Hq, D] in q's dtype."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"decode_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    _check_operand("q", q, q.dtype, dev, 3)
+    _check_operand("k_cache", k_cache, q.dtype, dev, 4)
+    _check_operand("v_cache", v_cache, q.dtype, dev, 4)
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    if tuple(k_cache.shape) != (b, s, hkv, d) \
+            or tuple(v_cache.shape) != (b, s, hkv, d):
+        raise ValueError(f"caches must be [B, S, Hkv, D] = [{b}, S, Hkv, "
+                         f"{d}] alike; got {tuple(k_cache.shape)} and "
+                         f"{tuple(v_cache.shape)}")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} must be a multiple of 8 in "
+                         f"[8, {MAX_HEAD_DIM}]")
+    if not isinstance(lengths, torch.Tensor) or lengths.device != dev \
+            or lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,) \
+            or not lengths.is_contiguous():
+        raise ValueError(f"lengths must be a contiguous int32 [{b}] tensor "
+                         f"on {dev}")
+    lib = _lib()
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.decode_attention_launch(
+            DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, s, hq,
+            hkv, d, _scale(d, scale), q.stride(0), q.stride(1),
+            *k_cache.stride()[:3], *v_cache.stride()[:3], stream)
+    if rc != 0:
+        msg = lib.decode_attention_error_string(rc).decode()
+        raise RuntimeError(f"decode_attention launch failed: CUDA error {rc} "
+                           f"({msg})")
+    with _LAUNCH_LOCK:
+        LAUNCHES["decode_attention"] += 1
+    return out

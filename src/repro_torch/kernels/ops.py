@@ -14,6 +14,8 @@ import threading
 
 import torch
 
+from . import decode_attention as _da
+from . import flash_attention as _fa
 from . import mapping_eval as _me
 
 _DISPATCH: dict[str, int] = {}
@@ -43,7 +45,18 @@ def route(x) -> str:
         return "cuda"
     if x.device.type == "cpu":
         return "plain"
-    raise ValueError(f"no mapping-eval path for device {x.device}")
+    raise ValueError(f"no kernel path for device {x.device}")
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA launches per hand-written kernel since the last reset."""
+    return {**_me.launch_counts(), **_da.launch_counts(),
+            **_fa.launch_counts()}
+
+
+def reset_launch_counts() -> None:
+    for mod in (_me, _da, _fa):
+        mod.reset_launch_counts()
 
 
 def mapping_eval(t_proc, chip, ppos, n_chips: int,
@@ -77,4 +90,28 @@ def mapping_eval_fused(t_proc, sched_idx, chip, ppos, n_chips: int,
         out = _me.mapping_eval_fused_plain(t_proc, sched_idx, chip, ppos,
                                            n_chips)
     record_dispatch(f"mapping_eval_fused:{path}")
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, lengths, scale=None):
+    """One-token GQA decode: q [B, Hq, D], caches [B, S, Hkv, D], lengths
+    [B] int32 -> [B, Hq, D] in q's dtype."""
+    path = route(q)
+    if path == "cuda":
+        out = _da.decode_attention_cuda(q, k_cache, v_cache, lengths, scale)
+    else:
+        out = _da.decode_attention_plain(q, k_cache, v_cache, lengths, scale)
+    record_dispatch(f"decode_attention:{path}")
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """Blocked GQA attention: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] ->
+    [B, Hq, Lq, D] in q's dtype; causal with offset Lk - Lq."""
+    path = route(q)
+    if path == "cuda":
+        out = _fa.flash_attention_cuda(q, k, v, causal, scale)
+    else:
+        out = _fa.flash_attention_plain(q, k, v, causal, scale)
+    record_dispatch(f"flash_attention:{path}")
     return out

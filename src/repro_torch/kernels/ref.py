@@ -1,6 +1,7 @@
-"""Float64 numpy references of the mapping-evaluation kernels: the
-straightforward sequential implementations every other version of pass B
-is held against."""
+"""Float64 numpy references of the hand-written kernels: the
+straightforward implementations every other version is held against
+(sequential pass B for the mapping-evaluation kernels, one dense softmax
+for the attention kernels)."""
 from __future__ import annotations
 
 import numpy as np
@@ -52,3 +53,53 @@ def mapping_eval_fused_reference(
                           (n_batch,) + sched_idx.shape)
     tproc_sched = np.take_along_axis(t_proc, idx, axis=-1)
     return mapping_eval_reference(tproc_sched, chip, ppos, n_chips)
+
+
+def _softmax(x: np.ndarray) -> np.ndarray:
+    e = np.exp(x - x.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def flash_attention_reference(
+    q: np.ndarray,  # [B, Hq, Lq, D]
+    k: np.ndarray,  # [B, Hkv, Lk, D]
+    v: np.ndarray,  # [B, Hkv, Lk, D]
+    causal: bool = True,
+    scale: float | None = None,
+) -> np.ndarray:
+    """GQA attention in float64: query head h reads kv head h // rep;
+    causal queries occupy the LAST Lq positions of the Lk-long context."""
+    q, k, v = (np.asarray(a, np.float64) for a in (q, k, v))
+    lq, d = q.shape[2], q.shape[3]
+    rep = q.shape[1] // k.shape[1]
+    scale = 1.0 / np.sqrt(d) if scale is None else scale
+    k = np.repeat(k, rep, axis=1)
+    v = np.repeat(v, rep, axis=1)
+    logits = np.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        qi = np.arange(lq)[:, None] + (k.shape[2] - lq)
+        ki = np.arange(k.shape[2])[None, :]
+        logits = np.where(ki <= qi, logits, -np.inf)
+    return np.einsum("bhqk,bhkd->bhqd", _softmax(logits), v)
+
+
+def decode_attention_reference(
+    q: np.ndarray,        # [B, Hq, D] — one new token per sequence
+    k_cache: np.ndarray,  # [B, S, Hkv, D]
+    v_cache: np.ndarray,  # [B, S, Hkv, D]
+    lengths: np.ndarray,  # [B] valid context length per sequence
+    scale: float | None = None,
+) -> np.ndarray:
+    """One-token GQA decode in float64 over the first ``lengths[b]``
+    cache positions of each sequence."""
+    q, k_cache, v_cache = (np.asarray(a, np.float64)
+                           for a in (q, k_cache, v_cache))
+    s, d = k_cache.shape[1], q.shape[-1]
+    rep = q.shape[1] // k_cache.shape[2]
+    scale = 1.0 / np.sqrt(d) if scale is None else scale
+    kk = np.repeat(k_cache, rep, axis=2)
+    vv = np.repeat(v_cache, rep, axis=2)
+    logits = np.einsum("bhd,bshd->bhs", q, kk) * scale
+    mask = np.arange(s)[None, None, :] < np.asarray(lengths)[:, None, None]
+    logits = np.where(mask, logits, -np.inf)
+    return np.einsum("bhs,bshd->bhd", _softmax(logits), vv)

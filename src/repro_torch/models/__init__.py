@@ -1,0 +1,13 @@
+"""The port's model stack (dense MHA/GQA decoder LMs) in torch."""
+from .transformer import (  # noqa: F401
+    ModelConfig,
+    MoECfg,
+    Transformer,
+    decode_step,
+    extend,
+    forward,
+    init_cache,
+    init_model,
+    param_count,
+    prefill,
+)

@@ -1,0 +1,328 @@
+"""Attention mixers (MHA / GQA): train, prefill, decode and extend paths.
+
+Two implementations of each path, chosen by ``impl``:
+
+* ``"eager"`` — plain torch (the JAX package's ``impl="xla"``: dense
+  softmax, or an online-softmax loop over key chunks for long sequences);
+* ``"kernel"`` — the hand-written kernels through
+  :mod:`repro_torch.kernels.ops` (``flash_attention`` for the full-sequence
+  paths, ``decode_attention`` for one-token decode). A CUDA tensor runs the
+  CUDA kernel, a CPU tensor its plain torch version.
+
+Extending a cache by a chunk (chunked prefill) is plain torch under both
+impls, as in the JAX package.
+
+Caches are ``{"k": [B, S, Hkv, D], "v": [B, S, Hkv, D], "len": [B] int32}``.
+Unlike the JAX package, the port writes new K/V rows into the cache
+tensors IN PLACE (by index: one row per sequence at decode, a span at
+extend) and returns a new dict holding the same K/V tensors and a new
+``len``; the result equals the JAX package's functional update bit for
+bit wherever the cache holds finite values. Caches are allocated with
+zeros (never ``torch.empty``): stale rows beyond ``len`` are read by the
+eager paths and multiplied by a zero weight, and ``0 * NaN`` is NaN.
+
+MLA (the DeepSeek-V2 latent cache) and the int8 cache come in a later
+slice of the port and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels import ops
+from .layers import Dense, apply_rope, dense
+
+IMPLS = ("kernel", "eager")
+NEG_INF = -1e30
+_LATER = "a later slice of the port"
+
+
+def check_impl(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; choose from "
+                         f"{IMPLS}")
+    return impl
+
+
+def _check_attn_kind(cfg) -> None:
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(f"MLA attention comes in {_LATER}")
+    if cfg.attn_kind not in ("mha", "gqa"):
+        raise NotImplementedError(f"attention kind {cfg.attn_kind!r} is not "
+                                  "ported")
+
+
+def _check_cache(cache) -> None:
+    if cache["k"].dtype == torch.int8:
+        raise NotImplementedError(f"the int8 KV cache comes in {_LATER}")
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """``wq`` (d, Hq*D), ``wk``/``wv`` (d, Hkv*D), with bias when
+    ``cfg.qkv_bias``; ``wo`` (Hq*D, d) without."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None,
+                 generator=None):
+        super().__init__()
+        _check_attn_kind(cfg)
+        d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.wq = Dense(d, hq * hd, cfg.qkv_bias, **kw)
+        self.wk = Dense(d, hkv * hd, cfg.qkv_bias, **kw)
+        self.wv = Dense(d, hkv * hd, cfg.qkv_bias, **kw)
+        self.wo = Dense(hq * hd, d, False, **kw)
+
+
+# --------------------------------------------------------------------------
+# scaled-dot-product attention backends
+# --------------------------------------------------------------------------
+
+
+def _plain_attention(q, k, v, causal: bool, offset: int):
+    """q: [B,H,Lq,D], k/v: [B,H,Lk,D] (heads already repeated)."""
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / float(np.sqrt(d))
+    if causal:
+        qi = torch.arange(q.shape[2], device=q.device)[:, None] + offset
+        ki = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(ki <= qi, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def _chunked_attention(q, k, v, causal: bool, offset: int, chunk: int = 512):
+    """Online softmax over key chunks, so the [Lq, Lk] score matrix never
+    materialises (long prefill)."""
+    b, h, lq, d = q.shape
+    dv, lk = v.shape[-1], k.shape[2]
+    scale = 1.0 / float(np.sqrt(d))
+    qi = torch.arange(lq, device=q.device)[:, None] + offset
+    m = torch.full((b, h, lq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, lq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, lq, dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, lk, chunk):
+        kb, vb = k[:, :, c0:c0 + chunk], v[:, :, c0:c0 + chunk]
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kb).float() * scale
+        kpos = c0 + torch.arange(kb.shape[2], device=q.device)[None, :]
+        mask = kpos < lk
+        if causal:
+            mask = mask & (kpos <= qi)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb.float())
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).to(q.dtype)
+
+
+def _sdpa(q, k, v, causal, offset, impl, chunk_threshold: int = 2048):
+    """q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D]. ``impl="kernel"`` takes the
+    causal offset as Lk - Lq (the kernel's convention)."""
+    rep = q.shape[1] // k.shape[1]
+    if check_impl(impl) == "kernel":
+        return ops.flash_attention(q, k, v, causal=causal)
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    if max(q.shape[2], k.shape[2]) > chunk_threshold:
+        return _chunked_attention(q, k, v, causal, offset)
+    return _plain_attention(q, k, v, causal, offset)
+
+
+# --------------------------------------------------------------------------
+# projections
+# --------------------------------------------------------------------------
+
+
+def _rope_heads(x, positions, cos, sin):
+    """x: [B, L, H, D] -> rotated, same layout. positions: [B, L]."""
+    xt = x.transpose(1, 2)                          # [B, H, L, D]
+    xt = apply_rope(xt, positions[:, None, :], cos, sin)
+    return xt.transpose(1, 2)
+
+
+def _project_qkv(p, x, cfg, positions, rope):
+    """Returns q/k/v as [B, H, L, D] views (and no MLA latent)."""
+    b, l, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope
+    q = dense(p.wq, x).reshape(b, l, hq, hd)
+    k = dense(p.wk, x).reshape(b, l, hkv, hd)
+    v = dense(p.wv, x).reshape(b, l, hkv, hd)
+    q = _rope_heads(q, positions, cos, sin)
+    k = _rope_heads(k, positions, cos, sin)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None
+
+
+# --------------------------------------------------------------------------
+# forward paths
+# --------------------------------------------------------------------------
+
+
+def attention_train(p, x, cfg, positions, rope, causal=True, impl="eager"):
+    """Full-sequence attention. x: [B, L, d]."""
+    b, l, _ = x.shape
+    q, k, v, _ = _project_qkv(p, x, cfg, positions, rope)
+    y = _sdpa(q, k, v, causal, offset=0, impl=impl)
+    y = y.transpose(1, 2).reshape(b, l, -1)
+    return dense(p.wo, y)
+
+
+def attention_prefill(p, x, cfg, positions, rope, cache, impl="kernel"):
+    """Prefill: full-sequence attention + fill the first L cache rows."""
+    _check_cache(cache)
+    b, l, _ = x.shape
+    if l > cache["k"].shape[1]:
+        raise ValueError(f"a {l}-token prompt does not fit a cache of "
+                         f"{cache['k'].shape[1]} positions")
+    q, k, v, _ = _project_qkv(p, x, cfg, positions, rope)
+    y = _sdpa(q, k, v, causal=True, offset=0, impl=impl)
+    y = y.transpose(1, 2).reshape(b, l, -1)
+    cache["k"][:, :l] = k.transpose(1, 2).to(cache["k"].dtype)
+    cache["v"][:, :l] = v.transpose(1, 2).to(cache["v"].dtype)
+    ln = torch.full((b,), l, dtype=torch.int32, device=x.device)
+    return dense(p.wo, y), {"k": cache["k"], "v": cache["v"], "len": ln}
+
+
+def _scatter_cache(cache, new, pos):
+    """cache: [B, S, H, D]; new: [B, H, D]; pos: [B]. Writes row ``pos[b]``
+    of each sequence in place; a position at or past S writes nothing (the
+    reference's one-hot blend has no such row either)."""
+    s = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = pos.clamp(0, s - 1)
+    keep = cache[rows, at]
+    cache[rows, at] = torch.where((pos < s)[:, None, None],
+                                  new.to(cache.dtype), keep)
+    return cache
+
+
+def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
+    """One-token decode with KV cache. x: [B, 1, d] -> [B, 1, d]."""
+    _check_cache(cache)
+    b = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope
+    pos = cache["len"]                              # [B]
+    x1 = x[:, 0, :]
+    q = dense(p.wq, x1).reshape(b, hq, hd)
+    k = dense(p.wk, x1).reshape(b, hkv, hd)
+    v = dense(p.wv, x1).reshape(b, hkv, hd)
+    q = apply_rope(q, pos[:, None], cos, sin)
+    k = apply_rope(k, pos[:, None], cos, sin)
+    kc = _scatter_cache(cache["k"], k, pos)
+    vc = _scatter_cache(cache["v"], v, pos)
+    lengths = pos + 1
+    if check_impl(impl) == "kernel":
+        o = ops.decode_attention(q.to(kc.dtype), kc, vc, lengths)
+    else:
+        o = _xla_decode(q, kc, vc, lengths)
+    o = o.to(x.dtype)
+    y = dense(p.wo, o.reshape(b, -1))[:, None, :]
+    return y, {"k": kc, "v": vc, "len": lengths}
+
+
+def _xla_decode(q, k_cache, v_cache, lengths):
+    """q: [B, Hq, D]; caches: [B, S, Hkv, D]. Grouped-head einsums — the KV
+    cache is never repeated per query head."""
+    b, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, k_cache).float() \
+        / float(np.sqrt(d))
+    mask = torch.arange(s, device=q.device)[None, None, None, :] \
+        < lengths[:, None, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bgrs,bsgd->bgrd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(b, hq, d)
+
+
+def attention_extend(p, x, cfg, rope, cache, impl="kernel", length=None):
+    """Multi-token cache extension (chunked prefill): the chunk's queries
+    attend over the existing cache plus themselves. x: [B, L, d]. Plain
+    torch under both impls (the reference has no kernel here either).
+
+    ``length`` ([B] int32, optional): true chunk length when x is
+    right-padded — only the cache ``len`` advance uses it (pad K/V rows
+    land beyond the advanced length, are never read by the causal mask,
+    and are overwritten by the next chunk; rows past S are dropped)."""
+    _check_cache(cache)
+    check_impl(impl)
+    b, l, _ = x.shape
+    adv = l if length is None else length
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope
+    off = cache["len"]                                   # [B]
+    positions = off[:, None] + torch.arange(l, device=x.device)[None, :]
+    q = dense(p.wq, x).reshape(b, l, hq, hd)
+    k = dense(p.wk, x).reshape(b, l, hkv, hd)
+    v = dense(p.wv, x).reshape(b, l, hkv, hd)
+    q = _rope_heads(q, positions, cos, sin).transpose(1, 2)
+    k = _rope_heads(k, positions, cos, sin)
+    kc = _scatter_span(cache["k"], k, off)
+    vc = _scatter_span(cache["v"], v, off)
+    new_len = (off + adv).to(torch.int32)
+    o = _xla_extend(q, kc, vc, off, l)                   # [B, Hq, L, hd]
+    y = o.transpose(1, 2).reshape(b, l, -1)
+    return dense(p.wo, y), {"k": kc, "v": vc, "len": new_len}
+
+
+def _scatter_span(cache, new, off):
+    """cache: [B, S, H, D]; new: [B, L, H, D]; off: [B] write offsets.
+    Writes rows off..off+L-1 of each sequence in place and drops those at
+    or past S, as the reference's ``.at[].set`` does. Without a host sync:
+    a dropped row is redirected to a row the same write already sets to
+    the same value (row ``off`` with ``new[:, 0]``, or row S-1 with its own
+    contents when ``off >= S``), so duplicate indices carry equal values."""
+    b, l = new.shape[0], new.shape[1]
+    s = cache.shape[1]
+    rows = torch.arange(b, device=cache.device)
+    idx = off[:, None] + torch.arange(l, device=cache.device)[None, :]
+    ok = idx < s
+    first = off.clamp(0, s - 1)
+    new = new.to(cache.dtype)
+    fill = torch.where((off < s)[:, None, None], new[:, 0],
+                       cache[rows, first])               # [B, H, D]
+    val = torch.where(ok[:, :, None, None], new, fill[:, None])
+    cache[rows[:, None], torch.where(ok, idx, first[:, None])] = val
+    return cache
+
+
+def _xla_extend(q, k_cache, v_cache, off, l):
+    """q: [B, Hq, L, D]; caches [B, S, Hkv, D]; causal over off+self.
+    Grouped-head einsums (no KV repeat)."""
+    b, hq, _, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, l, d)
+    logits = torch.einsum("bgrld,bsgd->bgrls", qg, k_cache).float() \
+        / float(np.sqrt(d))
+    qpos = off[:, None, None, None, None] \
+        + torch.arange(l, device=q.device)[None, None, None, :, None]
+    kpos = torch.arange(s, device=q.device)[None, None, None, None, :]
+    logits = torch.where(kpos <= qpos, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bgrls,bsgd->bgrld", p.to(v_cache.dtype), v_cache)
+    return o.reshape(b, hq, l, d)
+
+
+def init_attn_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                    device=None):
+    """Zero-filled ``{"k", "v", "len"}`` on ``device`` (resolved by the
+    caller)."""
+    _check_attn_kind(cfg)
+    if dtype == torch.int8:
+        raise NotImplementedError(f"the int8 KV cache comes in {_LATER}")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}

@@ -1,0 +1,389 @@
+"""Decoder-only dense LMs (MHA / GQA, RMSNorm or LayerNorm, gated or
+ungated FFN, tied or untied head, optional QKV bias) from one config.
+
+The model is a tree of :class:`torch.nn.Module` whose parameter names
+follow the JAX package's pytree paths (``blocks.3.attn.wq.w``), with dense
+weights in the JAX layout, so :func:`repro_torch.core.interop.params_from_jax`
+carries a JAX parameter tree across by copying. The apply functions keep
+the JAX package's signatures (``params`` first, then ``cfg``).
+
+Paths:
+* ``forward``      — full-sequence logits (``impl="eager"`` by default: the
+  training path; the kernels have no backward);
+* ``prefill``      — fill caches with whole prompts, return last logits;
+* ``extend``       — continue caches by a (padded) chunk;
+* ``decode_step``  — one token with caches (the serving inner loop).
+
+Every path takes ``device`` (``None`` = CUDA, raising where there is none,
+as the search's entry points do) and refuses tensors that lie elsewhere,
+so nothing runs on the CPU unless the caller asks. Caches are updated in
+place (see :mod:`.attention`).
+
+Ported families are those the dense attention-only configs need; MoE,
+Mamba / hybrid mixers, encoder-decoder models and the scan-over-layers
+entry points come in later slices and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..core.timing import resolve_device
+from .attention import (
+    Attention,
+    attention_decode,
+    attention_extend,
+    attention_prefill,
+    attention_train,
+    check_impl,
+    init_attn_cache,
+)
+from .layers import (
+    Dense,
+    Embedding,
+    LayerNorm,
+    RMSNorm,
+    dense,
+    embed,
+    gelu,
+    layernorm,
+    rmsnorm,
+    rope_freqs,
+    swiglu,
+)
+
+_LATER = "a later slice of the port"
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    n_routed: int
+    n_shared: int
+    top_k: int
+    d_expert: int
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    ffn_gated: bool = True
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    attn_kind: str = "gqa"           # mha | gqa | mla | none
+    qkv_bias: bool = False
+    mla_kv_rank: int = 0
+    mla_rope_dim: int = 64
+    moe: MoECfg | None = None
+    moe_every: int = 1
+    mixer: str = "attn"              # attn | mamba | hybrid
+    attn_every: int = 8
+    d_inner: int = 0
+    ssm_state: int = 0
+    mamba_heads: int = 8
+    cross_attention: bool = False    # decoder blocks get cross-attn (whisper)
+    encoder_layers: int = 0          # >0: encoder-decoder
+    encoder_len: int = 1500
+    rope_theta: float = 10000.0
+    max_seq: int = 8192
+    tie_embeddings: bool = True
+    scan_layers: bool = False    # scan-over-layers (stacked params layout)
+
+    def mixer_kind(self, i: int) -> str:
+        if self.mixer == "attn":
+            return "attn"
+        if self.mixer == "mamba":
+            return "mamba"
+        return "attn" if i % self.attn_every == self.attn_every // 2 else "mamba"
+
+    def ffn_kind(self, i: int) -> str:
+        if self.moe is not None and i % self.moe_every == self.moe_every - 1:
+            return "moe"
+        return "dense" if self.d_ff > 0 else "none"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family this slice does not
+    port."""
+    if cfg.moe is not None:
+        raise NotImplementedError(f"MoE FFNs come in {_LATER}")
+    if cfg.mixer != "attn":
+        raise NotImplementedError(f"{cfg.mixer} mixers (Mamba-2, ssd_scan) "
+                                  f"come in {_LATER}")
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(f"MLA attention comes in {_LATER}")
+    if cfg.encoder_layers > 0 or cfg.cross_attention:
+        raise NotImplementedError(f"encoder-decoder models come in {_LATER}")
+    if cfg.attn_kind not in ("mha", "gqa"):
+        raise NotImplementedError(f"attention kind {cfg.attn_kind!r} is not "
+                                  "ported")
+
+
+def _norm_module(cfg, dtype, device):
+    cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
+    return cls(cfg.d_model, dtype=dtype, device=device)
+
+
+def _norm(cfg, p, x):
+    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+
+class FFN(nn.Module):
+    """``wi`` (d, 2*d_ff gated | d_ff) and ``wo`` (d_ff, d)."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        mult = 2 if cfg.ffn_gated else 1
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.wi = Dense(cfg.d_model, mult * cfg.d_ff, False, **kw)
+        self.wo = Dense(cfg.d_ff, cfg.d_model, False, **kw)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        self.norm1 = _norm_module(cfg, dtype, device)
+        self.attn = Attention(cfg, dtype, device, generator)
+        if cfg.d_ff > 0:
+            self.norm2 = _norm_module(cfg, dtype, device)
+            self.ffn = FFN(cfg, dtype, device, generator)
+
+
+class Transformer(nn.Module):
+    """``embed``, ``blocks`` (a list of :class:`Block`), ``final_norm`` and,
+    untied, ``lm_head``. With a generator every weight is drawn as the JAX
+    package's ``init_model`` draws it (other random numbers); without one
+    the weights are left uninitialised, to be copied in."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
+                 generator=None):
+        super().__init__()
+        check_supported(cfg)
+        self.embed = Embedding(cfg.vocab, cfg.d_model, dtype, device,
+                               generator)
+        self.final_norm = _norm_module(cfg, dtype, device)
+        self.blocks = nn.ModuleList(Block(cfg, dtype, device, generator)
+                                    for _ in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = Dense(cfg.d_model, cfg.vocab, False, dtype,
+                                 device, generator)
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
+               device=None) -> Transformer:
+    """Random weights from ``seed`` on ``device`` (``None`` = CUDA): dense
+    ``w`` ~ N(0, 1/d_in), embeddings ~ N(0, 0.02^2), biases 0, norm gains 1
+    — the JAX package's initialisation, not its random numbers."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        return Transformer(cfg, dtype, dev, gen)
+
+
+def param_count(params: nn.Module) -> int:
+    return int(sum(p.numel() for p in params.parameters()))
+
+
+def _check_device(device, params, *tensors) -> torch.device:
+    """The resolved device, after checking that the weights and every
+    tensor given lie on it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    for name, t in (("params", next(params.parameters())),) + tensors:
+        if t.device != dev:
+            raise ValueError(f"{name} lie on {t.device}, not on {dev}; pass "
+                             f"device= to say where to run")
+    return dev
+
+
+def _cache_tensors(cache):
+    return tuple((f"cache[{i}][{k}]", t) for i, layer in enumerate(cache)
+                 for k, t in layer.items())
+
+
+# --------------------------------------------------------------------------
+# apply
+# --------------------------------------------------------------------------
+
+
+def _ffn_apply(p, cfg, x):
+    if cfg.ffn_gated:
+        g, u = torch.chunk(dense(p.wi, x), 2, dim=-1)
+        return dense(p.wo, swiglu(g, u))
+    return dense(p.wo, gelu(dense(p.wi, x)))
+
+
+def _ffn_residual(blk, cfg, x):
+    if cfg.d_ff <= 0:
+        return x
+    return x + _ffn_apply(blk.ffn, cfg, _norm(cfg, blk.norm2, x))
+
+
+def _logits(params, cfg, x):
+    if cfg.tie_embeddings:
+        return x @ params.embed.e.T
+    return dense(params.lm_head, x)
+
+
+def forward(params, cfg: ModelConfig, tokens, impl="eager", device=None):
+    """Full-sequence forward -> logits [B, L, vocab]."""
+    check_impl(impl)
+    dev = _check_device(device, params, ("tokens", tokens))
+    with torch.no_grad():
+        x = embed(params.embed, tokens)
+        b, l, _ = x.shape
+        rope = rope_freqs(cfg.head_dim, max(cfg.max_seq, l), cfg.rope_theta,
+                          dev)
+        positions = torch.arange(l, device=dev).expand(b, l)
+        for blk in params.blocks:
+            h = attention_train(blk.attn, _norm(cfg, blk.norm1, x), cfg,
+                                positions, rope, causal=True, impl=impl)
+            x = _ffn_residual(blk, cfg, x + h)
+        x = _norm(cfg, params.final_norm, x)
+        return _logits(params, cfg, x)
+
+
+# --------------------------------------------------------------------------
+# serving paths
+# --------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """One zero-filled attention cache per layer on ``device`` (``None`` =
+    CUDA)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [init_attn_cache(cfg, batch, max_len, dtype, dev)
+            for _ in range(cfg.n_layers)]
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache, impl="kernel",
+            device=None):
+    """Fill caches with the prompt; returns (last logits [B, vocab],
+    cache)."""
+    check_impl(impl)
+    dev = _check_device(device, params, ("tokens", tokens),
+                        *_cache_tensors(cache))
+    with torch.no_grad():
+        x = embed(params.embed, tokens)
+        b, l, _ = x.shape
+        rope = rope_freqs(cfg.head_dim, max(cfg.max_seq, l), cfg.rope_theta,
+                          dev)
+        positions = torch.arange(l, device=dev).expand(b, l)
+        new_cache = []
+        for blk, c in zip(params.blocks, cache):
+            h, c = attention_prefill(blk.attn, _norm(cfg, blk.norm1, x), cfg,
+                                     positions, rope, c, impl=impl)
+            new_cache.append(c)
+            x = _ffn_residual(blk, cfg, x + h)
+        x = _norm(cfg, params.final_norm, x)
+        return _logits(params, cfg, x[:, -1]), new_cache
+
+
+def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
+           length=None, device=None):
+    """Chunked-prefill continuation: process a multi-token chunk against the
+    existing caches. tokens: [B, L] -> (last logits [B, vocab], cache).
+
+    ``length`` (int or [B], optional) marks the true chunk length when
+    ``tokens`` is right-padded to a bucket size: pad positions neither
+    advance the caches nor pick the output logit."""
+    check_impl(impl)
+    dev = _check_device(device, params, ("tokens", tokens),
+                        *_cache_tensors(cache))
+    with torch.no_grad():
+        x = embed(params.embed, tokens)
+        b, l, _ = x.shape
+        adv = None if length is None else \
+            torch.as_tensor(length, dtype=torch.int32, device=dev).expand(b)
+        rope = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta, dev)
+        new_cache = []
+        for blk, c in zip(params.blocks, cache):
+            h, c = attention_extend(blk.attn, _norm(cfg, blk.norm1, x), cfg,
+                                    rope, c, impl=impl, length=adv)
+            new_cache.append(c)
+            x = _ffn_residual(blk, cfg, x + h)
+        x = _norm(cfg, params.final_norm, x)
+        if adv is None:
+            last = x[:, -1]
+        else:
+            last = x[torch.arange(b, device=dev), adv.long() - 1]
+        return _logits(params, cfg, last), new_cache
+
+
+def _save_slots(layer):
+    """What a decode step may overwrite in one layer's cache: each slot's
+    ``len`` and its K/V rows at the write position (clamped into the
+    cache)."""
+    at = layer["len"].clamp(0, layer["k"].shape[1] - 1)
+    rows = torch.arange(at.shape[0], device=at.device)
+    return {"at": at, "k": layer["k"][rows, at], "v": layer["v"][rows, at],
+            "len": layer["len"]}
+
+
+def _mask_cache(old, new, active):
+    """Freeze the cache rows of inactive slots (requests still prefilling
+    in other iterations must not be disturbed by the batched decode): put
+    back, by index, the K/V rows the step wrote for them and their
+    ``len``."""
+    if active is None:
+        return new
+    rows = torch.arange(active.shape[0], device=active.device)
+    keep = active[:, None, None]
+    for key in ("k", "v"):
+        c = new[key]
+        c[rows, old["at"]] = torch.where(keep, c[rows, old["at"]], old[key])
+    return {"k": new["k"], "v": new["v"],
+            "len": torch.where(active, new["len"], old["len"])}
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, impl="kernel",
+                active=None, device=None):
+    """One decode step. token: [B] -> (logits [B, vocab], cache).
+    ``active``: optional [B] bool — inactive slots' caches are left
+    untouched (continuous batching with partially-filled slots)."""
+    check_impl(impl)
+    extra = () if active is None else (("active", active),)
+    dev = _check_device(device, params, ("token", token), *extra,
+                        *_cache_tensors(cache))
+    with torch.no_grad():
+        x = embed(params.embed, token)[:, None, :]
+        rope = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta, dev)
+        new_cache = []
+        for blk, c in zip(params.blocks, cache):
+            old = None if active is None else _save_slots(c)
+            h, c = attention_decode(blk.attn, _norm(cfg, blk.norm1, x), cfg,
+                                    rope, c, impl=impl)
+            new_cache.append(_mask_cache(old, c, active))
+            x = _ffn_residual(blk, cfg, x + h)
+        x = _norm(cfg, params.final_norm, x)
+        return _logits(params, cfg, x[:, 0]), new_cache
+
+
+def _later(name: str):
+    def entry(*args, **kwargs):
+        raise NotImplementedError(f"{name} (scan-over-layers / encoder "
+                                  f"paths) comes in {_LATER}")
+    entry.__name__ = name
+    return entry
+
+
+encode = _later("encode")
+forward_scanned = _later("forward_scanned")
+encode_scanned = _later("encode_scanned")
+prefill_scanned = _later("prefill_scanned")
+decode_step_scanned = _later("decode_step_scanned")

@@ -25,6 +25,8 @@ def test_main_path_imports_no_jax_and_no_reference():
         "import sys\n"
         "import repro_torch.core.compass, repro_torch.core.torch_evaluator\n"
         "import repro_torch.kernels.ops, repro_torch.core.observability\n"
+        "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "import repro_torch.models, repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(bad)\n"
@@ -72,8 +74,22 @@ def test_default_device_is_cuda_and_never_falls_back():
     g = build_execution_graph(spec, batches[0], 2, tp=2, n_blocks=1)
     scenario = compass.Scenario("t", spec, target_tops=64, n_blocks=1,
                                 stream=RequestStream.fixed_batches(batches))
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_model, prefill
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get("qwen1.5-0.5b").reduced()
+    params = init_model(cfg, device="cpu")
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
     calls = [
         lambda: timing.resolve_device(None),
+        lambda: init_model(cfg),
+        lambda: init_cache(cfg, 1, 8),
+        lambda: ServingEngine(params, cfg),
+        lambda: prefill(params, cfg, tokens, cache),
+        lambda: serve.main([]),
         lambda: compass.search_mapping(spec, batches, hw, [2], n_blocks=1),
         lambda: compass.explore(scenario, bo_iters=1, bo_init=1),
         lambda: torch_evaluator.PopulationEvaluator(

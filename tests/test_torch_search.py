@@ -161,6 +161,7 @@ def test_batched_bo_on_one_device_and_cache_stats():
     assert stats["cost_tables"]["tables"] > 0
     assert stats["device_tables"]["entries"] > 0
     assert stats["device_resident_bytes"].get("cpu", 0) > 0
+    assert stats["serving"]["engine_runs"] >= 0
 
 
 @pytest.mark.cuda
@@ -185,7 +186,7 @@ def test_batched_bo_across_cards_matches_one_card():
     assert spread.bo.scores == one.bo.scores
 
 
-@pytest.mark.parametrize("arch", sorted(t_configs.SPECS))
+@pytest.mark.parametrize("arch", sorted(t_configs.all_archs()))
 def test_spec_table_matches_reference(arch):
     pytest.importorskip("jax")
     from repro.configs import all_archs
