@@ -15,7 +15,13 @@ Phases — any failure raises and the script exits non-zero:
            at 1e-5 relative. The attention kernels at the shapes of
            tests/test_kernels.py and at llama3.2-3b's (decode B 8, Hq 24,
            Hkv 8, D 128, S 1024, seeded lengths; flash B 2, L 512 causal,
-           and Lq 100 < Lk 512): 2e-5 in float32, 2e-2 in bfloat16;
+           and Lq 100 < Lk 512): 2e-5 in float32, 2e-2 in bfloat16.
+           The SSD scan kernel at mamba2-2.7b's prefill shape (B 2, L 512,
+           H 80, P 64, N 128), at the shapes of tests/test_kernels.py, at
+           a ragged L (700) and at L < 8 (5), its inputs strided slices
+           of one fused projection: y and the state within 1e-4 (float32)
+           or 2e-2 (bfloat16) of the largest plain value, and at one
+           small shape against the float64 sequential reference;
 3. main    the search path: ``explore`` on the canonical llama3.2-3b
            prefill scenario with the default (fused) backend and then with
            ``kernel``: the same best score, each kernel launched, no plain
@@ -35,14 +41,25 @@ Phases — any failure raises and the script exits non-zero:
            1e-4 of the largest, argmax equal to the engine's token wherever
            the top-two gap exceeds that); then ``prefill`` of 2 prompts of
            512 tokens through the flash kernel (28 launches), its logits
-           and caches against ``impl="eager"`` and against ``extend``;
+           and caches against ``impl="eager"`` and against ``extend``.
+           Then the same at the full width of mamba2-2.7b (64 layers,
+           seeded random float32 weights), after llama's weights are
+           freed: its engine runs launch NO kernel (prompts go through
+           the eager chunked SSD of ``extend``, decode through the
+           one-step recurrence, as in the JAX package); its ``prefill``
+           goes through the SSD kernel (64 launches), each layer's SSD
+           is held to the eager SSD within 1e-4 on the prefill's own
+           activations, and its logits and states against
+           ``impl="eager"`` and ``extend`` within SPREAD_FACTOR x the
+           rounding spread measured in the run (see SPREAD_FACTOR);
 5. times   CUDA-event times of each kernel, its plain version and, for the
            attention kernels, ``torch.nn.functional.scaled_dot_product_
            attention`` on the same inputs, beside the least time the card
            could take for the same bytes (3.35 TB/s) or operations
            (67 TFLOP/s float32, 989 TFLOP/s bfloat16): the mapping-eval
            kernels at P in {64, 512, 2048, 4096} (with one (b, p) chain
-           alone), decode at S in {1024, 8192}, flash at L in {512, 2048};
+           alone), decode at S in {1024, 8192}, flash at L in {512, 2048},
+           the SSD scan at L in {512, 4096} (no library call computes it);
 6. profile one hardware point's mapping search (the search path's GA)
            under ``torch.profiler``: wall, device busy time and share, and
            the kernels that take the device time.
@@ -82,11 +99,29 @@ ATTN_KERNELS = {
                         "src/repro/kernels/flash_attention.py:24"),
 }
 ATTN_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+# the Mamba-2 path's kernel: (its source, the body of the TPU kernel)
+SSD_KERNEL = ("ssd_scan", f"{CSRC}/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:30")
+SSD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}   # of the largest value
+# (B, L, H, P, N): the first is mamba2-2.7b's prefill of 2 x 512 tokens,
+# then the shapes of tests/test_kernels.py, a ragged L and L < 8
+SSD_MAIN = (2, 512, 80, 64, 128)
+SSD_PARITY = [SSD_MAIN, (1, 96, 2, 16, 8), (2, 70, 3, 8, 16),
+              (1, 128, 1, 32, 32), (1, 700, 80, 64, 128), (2, 5, 80, 64, 128)]
+SSD_TIMES = [SSD_MAIN, (2, 4096, 80, 64, 128)]
+MAMBA_ARCH, MAMBA_LAYERS = "mamba2-2.7b", 64
 MAIN_POP, MAIN_GENS = 512, 16
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
 SERVE_CHUNK = 64
 LOGIT_REL = 1e-4               # teacher-forced logits: of the largest |logit|
+# A 64-layer random-weight Mamba-2 stack carries float32 rounding forward
+# and grows it layer by layer, so two valid float32 evaluations of its
+# logits (SSD at chunk 64 or 128) differ by far more than LOGIT_REL. The
+# SSD kernel is held per layer to LOGIT_REL on the prefill's own
+# activations; end to end, its logits and states are held to
+# SPREAD_FACTOR x that chunk-64 vs chunk-128 spread, measured in the run.
+SPREAD_FACTOR = 10.0
 # attention shapes: (B, Hq, Hkv, S, D) for decode, (B, Hq, Hkv, Lq, Lk, D,
 # causal) for flash; the first of each list is the serving path's
 DECODE_MAIN = (8, 24, 8, 1024, 128)
@@ -299,6 +334,60 @@ def attention_bound(name: str, inp: dict) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def ssd_inputs(shape, dtype: str, seed: int) -> dict:
+    """Seeded SSD inputs on the card, laid out as the Mamba-2 mixer hands
+    them over: x [B, L, H, P], B and C [B, L, N] are slices of one fused
+    [B, L, H P + 2 N] projection (strided views, no copy), dt [B, L, H] in
+    (0.01, 0.2) and a [H] in (-2, -0.5) float32."""
+    import numpy as np
+    import torch
+
+    b, l, h, p, n = shape
+    rng = np.random.default_rng(seed)
+    fused = torch.as_tensor(
+        rng.standard_normal((b, l, h * p + 2 * n), dtype=np.float32),
+        device="cuda").to(getattr(torch, dtype))
+    return {"x": fused[..., :h * p].reshape(b, l, h, p),
+            "dt": torch.as_tensor(rng.uniform(0.01, 0.2, size=(b, l, h)),
+                                  dtype=torch.float32, device="cuda"),
+            "a": torch.as_tensor(-rng.uniform(0.5, 2.0, size=h),
+                                 dtype=torch.float32, device="cuda"),
+            "b": fused[..., h * p:h * p + n], "c": fused[..., h * p + n:]}
+
+
+def run_ssd(inp: dict, how: str):
+    """One call of the SSD kernel (``cuda``) or its plain version."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    args = (inp["x"], inp["dt"], inp["a"], inp["b"], inp["c"])
+    return ss.ssd_scan_cuda(*args) if how == "cuda" \
+        else ss.ssd_scan_plain(*args)
+
+
+def ssd_bound(inp: dict) -> dict:
+    """Bytes (x, dt, B, C read once; y and the state written once) and
+    operations of the chunked algorithm at the kernel's chunk Q (64, fewer
+    than at the TPU's 128): per (b, h, chunk) 2 Q N P for the inter term,
+    2 Q N P for the state update and 2 Q^2 P for the intra term, plus
+    2 Q^2 N per (b, chunk) for C B^T; and the least time the card could
+    take for them at the inputs' rate."""
+    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK as q
+
+    x = inp["x"]
+    b, l, h, p = x.shape
+    n = inp["b"].shape[-1]
+    item = x.element_size()
+    chunks = -(-l // q)
+    nbytes = (2 * x.numel() + 2 * b * l * n) * item \
+        + 4 * (b * l * h + h) + 4 * b * h * n * p
+    ops = b * h * chunks * (4 * q * n * p + 2 * q * q * p) \
+        + b * chunks * 2 * q * q * n
+    peak = F32_OPS_PER_S if item == 4 else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -311,13 +400,15 @@ def phase_build() -> dict:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mapping_eval as me
+    from repro_torch.kernels import ssd_scan as ss
 
-    sources = ("mapping_eval.cu", "decode_attention.cu", "flash_attention.cu")
+    sources = ("mapping_eval.cu", "decode_attention.cu", "flash_attention.cu",
+               "ssd_scan.cu")
     t0 = time.perf_counter()
     found = {src: build.library_path(src).exists() for src in sources}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         libs = list(pool.map(build.compile_source, sources))
-    for mod in (me, da, fa):
+    for mod in (me, da, fa, ss):
         mod._lib()
     rec = {"phase": "build", "sources": [f"{CSRC}/{s}" for s in sources],
            "libraries": [lib.name for lib in libs],
@@ -411,6 +502,54 @@ def phase_attention_parity() -> dict:
                       "max_abs_err": err, "tol": tol,
                       "serving_shape": i == 0})
     return errs
+
+
+def phase_ssd_parity() -> float:
+    """The SSD kernel against its plain version on the same inputs (y and
+    the final state within SSD_TOLS of the largest plain value), and at
+    one small shape both against the float64 sequential reference;
+    returns the largest float32 error at the prefill shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+
+    err_main = None
+    for i, shape in enumerate(SSD_PARITY):
+        for dtype, tol in SSD_TOLS.items():
+            inp = ssd_inputs(shape, dtype, seed=i)
+            got = run_ssd(inp, "cuda")
+            want = run_ssd(inp, "plain")
+            torch.cuda.synchronize()
+            errs = []
+            for what, g, w in zip(("y", "state"), got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape,
+                      f"ssd_scan {shape} {dtype} {what}: {g.dtype} "
+                      f"{tuple(g.shape)} vs {w.dtype} {tuple(w.shape)}")
+                err = float((g.float() - w.float()).abs().max())
+                scale = float(w.float().abs().max())
+                check(torch.isfinite(g).all().item() and err <= tol * scale,
+                      f"ssd_scan {shape} {dtype} {what} differs from its "
+                      f"plain version: max abs err {err} > {tol} x {scale}")
+                errs.append(err)
+            rec = {"phase": "parity", "kernel": "ssd_scan",
+                   "shape": list(shape), "dtype": dtype,
+                   "max_abs_err_y": errs[0], "max_abs_err_state": errs[1],
+                   "tol_of_largest": tol, "prefill_shape": i == 0}
+            if i == 1 and dtype == "float32":
+                host = [t.float().cpu().numpy() for t in
+                        (inp["x"], inp["dt"], inp["a"], inp["b"], inp["c"])]
+                r_y, r_s = ref.ssd_reference(*host)
+                for what, g, w in (("y", got[0], r_y), ("state", got[1], r_s)):
+                    e = float(np.abs(g.float().cpu().numpy() - w).max())
+                    check(e <= tol * float(np.abs(w).max()),
+                          f"ssd_scan {shape} {what} vs the float64 "
+                          f"reference: max abs err {e}")
+                    rec[f"ref_err_{what}"] = e
+            if i == 0 and dtype == "float32":
+                err_main = max(errs)
+            emit(rec)
+    return err_main
 
 
 def _explore_once(scenario, backend):
@@ -569,7 +708,17 @@ def _serve_requests(vocab: int):
             for i, n in enumerate(lens)]
 
 
-def _engine_run(params, cfg, sched_name: str, device) -> tuple[dict, dict]:
+def _decode_dispatches(cfg, n_dec: int) -> dict:
+    """The kernel dispatches an engine run must make: one decode-attention
+    launch per attention layer and decode iteration. Prompts go through
+    ``extend`` (eager attention, the eager chunked SSD) and decode through
+    the one-step Mamba recurrence, so a Mamba layer dispatches nothing."""
+    n_attn = sum(1 for i in range(cfg.n_layers) if cfg.mixer_kind(i) == "attn")
+    return {"decode_attention:cuda": n_dec * n_attn} if n_attn else {}
+
+
+def _engine_run(params, cfg, arch: str, sched_name: str,
+                device) -> tuple[dict, dict]:
     """One ``ServingEngine.run``; returns its record and the token
     streams {rid: (prompt, generated)}."""
     import torch
@@ -598,15 +747,14 @@ def _engine_run(params, cfg, sched_name: str, device) -> tuple[dict, dict]:
     check(all(len(r.generated) == SERVE_NEW for r in res.finished),
           f"{sched_name}: a request did not get {SERVE_NEW} tokens")
     n_dec = sum(1 for st in res.stats if st.n_decode)
-    want = n_dec * cfg.n_layers
-    check(launches["decode_attention"] == want and launches["flash_attention"]
-          == 0, f"{sched_name}: launches {launches}, expected {want} decode "
-          f"launches ({n_dec} decode iterations x {cfg.n_layers} layers)")
-    check(disp == {"decode_attention:cuda": want},
-          f"{sched_name}: unexpected dispatch paths {disp}")
+    want = _decode_dispatches(cfg, n_dec)
+    check(disp == want, f"{arch} {sched_name}: dispatch paths {disp}, "
+          f"expected {want} ({n_dec} decode iterations)")
+    check(all(n == want.get(f"{k}:cuda", 0) for k, n in launches.items()),
+          f"{arch} {sched_name}: launches {launches}, expected {want}")
     summ = summarize(res.finished, res.stats)
     out_tokens = summ["output_tokens"]
-    rec = {"phase": "serve", "run": "engine", "arch": SERVE_ARCH,
+    rec = {"phase": "serve", "run": "engine", "arch": arch,
            "scheduler": sched_name, "wall_s": wall,
            "tokens_per_s": out_tokens / wall, "output_tokens": out_tokens,
            "prefill_tokens": sum(st.n_prefill_tokens for st in res.stats),
@@ -618,10 +766,11 @@ def _engine_run(params, cfg, sched_name: str, device) -> tuple[dict, dict]:
     return rec, {r.rid: (r.prompt, r.generated) for r in res.finished}
 
 
-def _engine_profile(params, cfg, device) -> dict:
+def _engine_profile(params, cfg, arch: str, device) -> dict:
     """One more orca run of the engine under ``torch.profiler`` (its
     launches are not the path's count): device busy share, and the device
-    time in the decode kernel, in matrix products and in the rest."""
+    time in the hand-written kernels, in matrix products and in the
+    rest."""
     from repro_torch.serving import OrcaScheduler
     from repro_torch.serving.engine import ServingEngine
 
@@ -634,20 +783,24 @@ def _engine_profile(params, cfg, device) -> dict:
     def device_ms(pred) -> float:
         return sum(_dev_us(e) for e in kern if pred(e.key.lower())) / 1e3
 
-    rec = {"phase": "serve", "run": "profile", "scheduler": "orca", **prof,
-           "decode_kernel_ms": device_ms(lambda k: "decode_attention" in k),
+    rec = {"phase": "serve", "run": "profile", "arch": arch,
+           "scheduler": "orca", **prof,
+           "hand_kernel_ms": {name: device_ms(lambda k, n=name: n in k)
+                              for name in ("decode_attention",
+                                           "flash_attention", "ssd_scan")},
            "gemm_ms": device_ms(lambda k: "gemm" in k or "xmma" in k
                                 or "cutlass" in k)}
-    rec["other_device_ms"] = (prof["device_busy_ms"] - rec["decode_kernel_ms"]
-                              - rec["gemm_ms"])
+    rec["other_device_ms"] = (prof["device_busy_ms"] - rec["gemm_ms"]
+                              - sum(rec["hand_kernel_ms"].values()))
     emit(rec)
     return rec
 
-def _replay(params, cfg, streams: dict, device) -> dict:
+def _replay(params, cfg, arch: str, streams: dict, device,
+            tol: float = LOGIT_REL) -> dict:
     """Teacher forcing: each request's prompt through ``prefill`` and its
     generated tokens through ``decode_step``, once with ``impl="kernel"``
     and once with ``impl="eager"``. At every step the two logits agree
-    within LOGIT_REL of the largest, and the eager argmax is the engine's
+    within ``tol`` of the largest, and the eager argmax is the engine's
     token wherever the eager top-two gap exceeds that tolerance."""
     import torch
 
@@ -667,12 +820,12 @@ def _replay(params, cfg, streams: dict, device) -> dict:
             got, ref = state["kernel"][0][0], state["eager"][0][0]
             scale = float(ref.abs().max())
             err = float((got - ref).abs().max())
-            check(err <= LOGIT_REL * scale,
+            check(err <= tol * scale,
                   f"request {rid} step {j}: kernel vs eager logits differ by "
-                  f"{err} > {LOGIT_REL} x {scale}")
+                  f"{err} > {tol} x {scale}")
             worst = max(worst, err / scale)
             top2 = torch.topk(ref, 2).values
-            if float(top2[0] - top2[1]) > LOGIT_REL * scale:
+            if float(top2[0] - top2[1]) > tol * scale:
                 check(int(ref.argmax()) == want,
                       f"request {rid} step {j}: eager argmax "
                       f"{int(ref.argmax())} != engine token {want}")
@@ -686,20 +839,75 @@ def _replay(params, cfg, streams: dict, device) -> dict:
                                               state[impl][1], impl=impl,
                                               device=device)
     torch.cuda.synchronize()
-    rec = {"phase": "serve", "run": "teacher_forcing", "requests":
-           len(streams), "steps": checked + skipped,
+    rec = {"phase": "serve", "run": "teacher_forcing", "arch": arch,
+           "requests": len(streams), "steps": checked + skipped,
            "argmax_checked": checked, "argmax_skipped_small_gap": skipped,
-           "max_rel_logit_err": worst, "tol": LOGIT_REL,
+           "max_rel_logit_err": worst, "tol": tol,
            "wall_s": time.perf_counter() - t0}
     emit(rec)
     return rec
 
 
-def _prefill_check(params, cfg, device) -> dict:
-    """``prefill`` of 2 prompts of 512 tokens through the flash kernel
-    (one launch per layer), against ``impl="eager"`` and against
-    ``extend`` from an empty cache: logits and K/V caches within
-    LOGIT_REL of the largest reference value."""
+def _mamba_layer_check(params, cfg, toks, device) -> dict:
+    """Along the eager prefill's own trajectory, every Mamba layer's mixer
+    through the SSD kernel and through the eager SSD on the same input:
+    outputs and final states within LOGIT_REL of the largest eager value
+    (these launches are not the path's count). Beside it, a second eager
+    trajectory whose SSD runs at the kernel's chunk of 64 instead of 128:
+    the distance of its logits from the first is the spread that float32
+    rounding alone opens through the depth."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import KERNEL_CHUNK, ssd_chunked
+    from repro_torch.models import mamba2, transformer
+
+    def eager_at(p, h, chunk):
+        z, xs, b_mat, c_mat, dt = mamba2._split_proj(p, h, cfg)
+        bsz, l, _ = h.shape
+        heads, pdim = mamba2._heads(cfg)
+        init = torch.zeros((bsz, heads, cfg.ssm_state, pdim), device=device)
+        y, _ = ssd_chunked(xs.reshape(bsz, l, heads, pdim), dt,
+                           -torch.exp(p.a_log), b_mat, c_mat, init, chunk)
+        return mamba2._gate_out(p, y, z, h, cfg)
+
+    worst = {"y": 0.0, "state": 0.0}
+    with torch.no_grad():
+        x = x64 = params.embed.e[toks]
+        for blk in params.blocks:
+            h = transformer._norm(cfg, blk.norm1, x)
+            y_k, c_k = mamba2.mamba_prefill(blk.mamba, h, cfg, None,
+                                            impl="kernel")
+            y_e, c_e = mamba2.mamba_prefill(blk.mamba, h, cfg, None,
+                                            impl="eager")
+            for what, got, want in (("y", y_k, y_e),
+                                    ("state", c_k["state"], c_e["state"])):
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                check(err <= LOGIT_REL * scale, f"ssd_scan on the prefill "
+                      f"path: a layer's {what} differs from the eager SSD by "
+                      f"{err} (largest {scale})")
+                worst[what] = max(worst[what], err / scale)
+            x = transformer._ffn_residual(blk, cfg, x + y_e)
+            h64 = transformer._norm(cfg, blk.norm1, x64)
+            x64 = transformer._ffn_residual(blk, cfg,
+                                            x64 + eager_at(blk.mamba, h64,
+                                                           KERNEL_CHUNK))
+        last = [transformer._logits(params, cfg, transformer._norm(
+            cfg, params.final_norm, v)[:, -1]) for v in (x, x64)]
+    torch.cuda.synchronize()
+    spread = float((last[0] - last[1]).abs().max() / last[0].abs().max())
+    return {"max_rel_layer_err": worst, "eager_chunk_spread": spread}
+
+
+def _prefill_check(params, cfg, arch: str, kernel: str, device) -> dict:
+    """``prefill`` of 2 prompts of 512 tokens through ``kernel`` (the flash
+    kernel, or the SSD kernel of a Mamba model: one launch per layer),
+    against ``impl="eager"`` and against ``extend`` from an empty cache:
+    logits and caches (K/V, or the Mamba state) within LOGIT_REL of the
+    largest reference value; for a Mamba model, within SPREAD_FACTOR x the
+    rounding spread of :func:`_mamba_layer_check`, which also holds the
+    kernel to LOGIT_REL layer by layer. Returns the record, whose
+    ``tol`` the replay uses."""
     import numpy as np
     import torch
 
@@ -729,71 +937,90 @@ def _prefill_check(params, cfg, device) -> dict:
             launches, disp = ops.launch_counts(), ops.dispatch_stats()
         runs[label] = (logits, cache, wall)
     want = cfg.n_layers
-    check(launches["flash_attention"] == want
-          and disp == {"flash_attention:cuda": want},
-          f"prefill: launches {launches}, dispatches {disp}; expected {want} "
-          f"flash_attention:cuda")
+    check(launches[kernel] == want and sum(launches.values()) == want
+          and disp == {f"{kernel}:cuda": want},
+          f"{arch} prefill: launches {launches}, dispatches {disp}; "
+          f"expected {want} {kernel}:cuda")
+    tol, layers = LOGIT_REL, None
+    if kernel == "ssd_scan":
+        layers = _mamba_layer_check(params, cfg, toks, device)
+        tol = max(LOGIT_REL, SPREAD_FACTOR * layers["eager_chunk_spread"])
     errs = {}
     k_logits, k_cache, _ = runs["kernel"]
     for label in ("eager", "extend"):
         logits, cache, _ = runs[label]
         scale = float(logits.abs().max())
         err = float((k_logits - logits).abs().max())
-        check(torch.isfinite(k_logits).all().item()
-              and err <= LOGIT_REL * scale,
-              f"prefill logits: kernel vs {label} differ by {err}")
+        check(torch.isfinite(k_logits).all().item() and err <= tol * scale,
+              f"{arch} prefill logits: kernel vs {label} differ by {err} > "
+              f"{tol} x {scale}")
         c_err = 0.0
         for kc, rc in zip(k_cache, cache):
             check(torch.equal(kc["len"], rc["len"]), "cache lengths differ")
-            for key in ("k", "v"):
+            for key in sorted(set(kc) - {"len"}):
                 e = float((kc[key] - rc[key]).abs().max())
                 m = float(rc[key].abs().max())
-                check(e <= LOGIT_REL * m, f"prefill cache {key}: kernel vs "
+                check(e <= tol * m, f"{arch} prefill cache {key}: kernel vs "
                       f"{label} differ by {e} (largest {m})")
                 c_err = max(c_err, e / m)
         errs[label] = {"max_rel_logit_err": err / scale,
                        "max_rel_cache_err": c_err}
-    rec = {"phase": "serve", "run": "prefill", "batch": 2, "prompt": 512,
+    rec = {"phase": "serve", "run": "prefill", "arch": arch, "kernel": kernel,
+           "batch": 2, "prompt": 512,
            "wall_s": {label: runs[label][2] for label in runs},
            "tokens_per_s": {label: 2 * 512 / runs[label][2] for label in runs},
            "launches": launches, "dispatches": disp, "vs": errs,
-           "tol": LOGIT_REL}
+           "tol": tol, "per_layer": layers}
     emit(rec)
     return rec
 
 
-def phase_serve(device) -> dict:
-    """The serving path at the full width of llama3.2-3b."""
+def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
+    """One model at full width with seeded float32 weights: the engine
+    under the three schedulers, one profiled orca run, the teacher-forced
+    replay of vllm's streams and the 2 x 512 ``prefill`` through
+    ``kernel``; the weights are freed at the end."""
     import torch
 
     from repro_torch.configs import get
     from repro_torch.models import init_model
 
-    cfg = get(SERVE_ARCH).model
-    check(cfg.n_layers == SERVE_LAYERS, f"{SERVE_ARCH} has {cfg.n_layers} "
-          "layers")
+    cfg = get(arch).model
+    check(cfg.n_layers == n_layers, f"{arch} has {cfg.n_layers} layers")
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device=device)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    emit({"phase": "serve", "run": "init", "arch": SERVE_ARCH,
+    emit({"phase": "serve", "run": "init", "arch": arch,
           "params": n_params, "bytes": 4 * n_params,
           "seconds": time.perf_counter() - t0})
     runs, streams = {}, None
     for name in ("vllm", "orca", "chunked_prefill"):
-        runs[name], got = _engine_run(params, cfg, name, device)
+        runs[name], got = _engine_run(params, cfg, arch, name, device)
         streams = streams or got
-    profile = _engine_profile(params, cfg, device)
-    replay = _replay(params, cfg, streams, device)
-    pre = _prefill_check(params, cfg, device)
+    profile = _engine_profile(params, cfg, arch, device)
+    pre = _prefill_check(params, cfg, arch, kernel, device)
+    replay = _replay(params, cfg, arch, streams, device, pre["tol"])
     del params
     torch.cuda.empty_cache()
     return {"engine": runs, "profile": profile, "replay": replay,
-            "prefill": pre,
+            "prefill": pre}
+
+
+def phase_serve(device) -> dict:
+    """The serving path at the full width of llama3.2-3b, then of
+    mamba2-2.7b (whose engine runs launch no kernel: prompts go through
+    the eager chunked SSD of ``extend``, decode through the one-step
+    recurrence; only ``prefill`` reaches the SSD kernel)."""
+    llama = _serve_arch(SERVE_ARCH, SERVE_LAYERS, "flash_attention", device)
+    mamba = _serve_arch(MAMBA_ARCH, MAMBA_LAYERS, "ssd_scan", device)
+    return {"llama": llama, "mamba": mamba,
             "launches": {
                 "decode_attention": sum(r["launches"]["decode_attention"]
-                                        for r in runs.values()),
-                "flash_attention": pre["launches"]["flash_attention"]}}
+                                        for r in llama["engine"].values()),
+                "flash_attention":
+                    llama["prefill"]["launches"]["flash_attention"],
+                "ssd_scan": mamba["prefill"]["launches"]["ssd_scan"]}}
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
@@ -880,6 +1107,35 @@ def phase_attention_times(serve: dict) -> dict:
                 if i == 0 and dtype == "float32":
                     at_main[name] = rec
     return at_main
+
+def phase_ssd_times(serve: dict) -> dict:
+    """CUDA-event times of the SSD kernel and its plain version (in turns:
+    plain, kernel, kernel, plain) beside the bound, at mamba2-2.7b's
+    widths for L in {512, 4096}, in float32 and bfloat16. No PyTorch call
+    computes an SSD scan, so there is no library time. Returns the record
+    at the prefill shape in float32."""
+    at_main = None
+    for i, shape in enumerate(SSD_TIMES):
+        for dtype in SSD_TOLS:
+            inp = ssd_inputs(shape, dtype, seed=200 + i)
+            t = {how: [] for how in ("cuda", "plain")}
+            for how in ("plain", "cuda", "cuda", "plain"):
+                reps = 20 if how == "cuda" else 3
+                t[how].append(_time_ms(lambda how=how: run_ssd(inp, how),
+                                       reps, 1))
+            rec = {"kernel": "ssd_scan", "shape": list(shape),
+                   "dtype": dtype, "kernel_ms": sum(t["cuda"]) / 2,
+                   "plain_ms": sum(t["plain"]) / 2,
+                   "kernel_ms_runs": t["cuda"], "plain_ms_runs": t["plain"],
+                   "library_ms": None,
+                   "launches_on_path": serve["launches"]["ssd_scan"],
+                   **ssd_bound(inp)}
+            rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+            emit(rec)
+            if i == 0 and dtype == "float32":
+                at_main = rec
+    return at_main
+
 
 def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) \
@@ -979,6 +1235,7 @@ def main(argv=None) -> int:
     ev = canonical_evaluator(scenario, device)
     errs = phase_parity(ev)
     errs.update(phase_attention_parity())
+    errs["ssd_scan"] = phase_ssd_parity()
     if "main" not in phases:
         return 0
     runs = phase_main(scenario, device)
@@ -989,6 +1246,7 @@ def main(argv=None) -> int:
         return 0
     at_main = phase_times(ev, runs)
     at_main.update(phase_attention_times(serve))
+    at_main["ssd_scan"] = phase_ssd_times(serve)
     if "profile" not in phases:
         return 0
     phase_profile(scenario)
@@ -1017,6 +1275,14 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    name, source, replaces = SSD_KERNEL
+    rec = at_main[name]
+    kernels.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": serve["launches"][name],
+        "max_abs_err": errs[name], "ms": rec["kernel_ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,7 @@ def _load_all():
     from . import (  # noqa: F401
         glm4_9b,
         llama3_2_3b,
+        mamba2_2_7b,
         paper_models,
         qwen1_5_0_5b,
         qwen2_1_5b,

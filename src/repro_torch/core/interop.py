@@ -111,7 +111,8 @@ def params_from_jax(tree, cfg, device, dtype=torch.float32):
 
 def cache_from_jax(caches, device):
     """A list of per-layer cache dicts with numpy leaves (``k``, ``v``,
-    ``len``) as the port's caches on ``device`` (``None`` = CUDA)."""
+    ``len`` of an attention layer; ``state``, ``len`` of a Mamba layer) as
+    the port's caches on ``device`` (``None`` = CUDA)."""
     from .timing import resolve_device
 
     dev = resolve_device(device)

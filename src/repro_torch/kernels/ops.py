@@ -17,6 +17,7 @@ import torch
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import mapping_eval as _me
+from . import ssd_scan as _ss
 
 _DISPATCH: dict[str, int] = {}
 _DISPATCH_LOCK = threading.Lock()
@@ -51,11 +52,11 @@ def route(x) -> str:
 def launch_counts() -> dict[str, int]:
     """CUDA launches per hand-written kernel since the last reset."""
     return {**_me.launch_counts(), **_da.launch_counts(),
-            **_fa.launch_counts()}
+            **_fa.launch_counts(), **_ss.launch_counts()}
 
 
 def reset_launch_counts() -> None:
-    for mod in (_me, _da, _fa):
+    for mod in (_me, _da, _fa, _ss):
         mod.reset_launch_counts()
 
 
@@ -114,4 +115,20 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     else:
         out = _fa.flash_attention_plain(q, k, v, causal, scale)
     record_dispatch(f"flash_attention:{path}")
+    return out
+
+
+def ssd_scan(x, dt, a, b_mat, c_mat, chunk: int = _ss.DEFAULT_CHUNK):
+    """Mamba-2 SSD chunked scan from a zero state: x [B, L, H, P], dt
+    [B, L, H] float32, a [H] float32, b_mat/c_mat [B, L, N] -> (y
+    [B, L, H, P] in x's dtype, final state [B, H, N, P] float32).
+    ``chunk`` is the plain version's chunk; the CUDA kernel's is its own
+    (:data:`repro_torch.kernels.ssd_scan.KERNEL_CHUNK`), and the chunk
+    length changes only the rounding."""
+    path = route(x)
+    if path == "cuda":
+        out = _ss.ssd_scan_cuda(x, dt, a, b_mat, c_mat)
+    else:
+        out = _ss.ssd_scan_plain(x, dt, a, b_mat, c_mat, chunk)
+    record_dispatch(f"ssd_scan:{path}")
     return out

@@ -1,7 +1,8 @@
 """Float64 numpy references of the hand-written kernels: the
 straightforward implementations every other version is held against
 (sequential pass B for the mapping-evaluation kernels, one dense softmax
-for the attention kernels)."""
+for the attention kernels, the position-by-position recurrence for the SSD
+scan)."""
 from __future__ import annotations
 
 import numpy as np
@@ -103,3 +104,34 @@ def decode_attention_reference(
     mask = np.arange(s)[None, None, :] < np.asarray(lengths)[:, None, None]
     logits = np.where(mask, logits, -np.inf)
     return np.einsum("bhs,bshd->bhd", _softmax(logits), vv)
+
+
+def ssd_reference(
+    x: np.ndarray,      # [B, L, H, P]
+    dt: np.ndarray,     # [B, L, H]  (softplus-activated step size)
+    a: np.ndarray,      # [H]        (negative decay rate, A = -exp(a_log))
+    b_mat: np.ndarray,  # [B, L, N]
+    c_mat: np.ndarray,  # [B, L, N]
+    init_state: np.ndarray | None = None,  # [B, H, N, P]
+) -> tuple[np.ndarray, np.ndarray]:
+    """The Mamba-2 SSD recurrence in float64, one position at a time (one
+    B/C group shared by all heads):
+
+        S_t = exp(a * dt_t) * S_{t-1} + dt_t * B_t^T x_t
+        y_t = C_t S_t
+
+    Returns (y [B, L, H, P], final state [B, H, N, P])."""
+    x, dt, a, b_mat, c_mat = (np.asarray(v, np.float64)
+                              for v in (x, dt, a, b_mat, c_mat))
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    state = (np.zeros((bsz, h, n, p)) if init_state is None
+             else np.asarray(init_state, np.float64).copy())
+    y = np.zeros((bsz, l, h, p))
+    for t in range(l):
+        decay = np.exp(a[None, :] * dt[:, t])                    # [B, H]
+        upd = np.einsum("bn,bhp->bhnp", b_mat[:, t],
+                        x[:, t] * dt[:, t][..., None])
+        state = state * decay[:, :, None, None] + upd
+        y[:, t] = np.einsum("bn,bhnp->bhp", c_mat[:, t], state)
+    return y, state

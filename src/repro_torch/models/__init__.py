@@ -1,4 +1,5 @@
-"""The port's model stack (dense MHA/GQA decoder LMs) in torch."""
+"""The port's model stack (dense MHA/GQA, Mamba-2 and hybrid decoder LMs)
+in torch."""
 from .transformer import (  # noqa: F401
     ModelConfig,
     MoECfg,

@@ -1,5 +1,6 @@
-"""Decoder-only dense LMs (MHA / GQA, RMSNorm or LayerNorm, gated or
-ungated FFN, tied or untied head, optional QKV bias) from one config.
+"""Decoder-only LMs from one config: dense MHA / GQA, Mamba-2 and hybrid
+attention + Mamba-2 stacks (RMSNorm or LayerNorm, gated or ungated FFN or
+none, tied or untied head, optional QKV bias).
 
 The model is a tree of :class:`torch.nn.Module` whose parameter names
 follow the JAX package's pytree paths (``blocks.3.attn.wq.w``), with dense
@@ -16,12 +17,13 @@ Paths:
 
 Every path takes ``device`` (``None`` = CUDA, raising where there is none,
 as the search's entry points do) and refuses tensors that lie elsewhere,
-so nothing runs on the CPU unless the caller asks. Caches are updated in
-place (see :mod:`.attention`).
+so nothing runs on the CPU unless the caller asks. Attention caches are
+updated in place (see :mod:`.attention`); a Mamba layer returns a new
+state (see :mod:`.mamba2`). Layer ``i`` mixes with attention or Mamba-2 as
+``cfg.mixer_kind(i)`` says.
 
-Ported families are those the dense attention-only configs need; MoE,
-Mamba / hybrid mixers, encoder-decoder models and the scan-over-layers
-entry points come in later slices and raise ``NotImplementedError``.
+MoE FFNs, MLA, encoder-decoder models and the scan-over-layers entry
+points come in later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,6 +54,14 @@ from .layers import (
     rmsnorm,
     rope_freqs,
     swiglu,
+)
+from .mamba2 import (
+    Mamba,
+    init_mamba_cache,
+    mamba_decode,
+    mamba_extend,
+    mamba_prefill,
+    mamba_train,
 )
 
 _LATER = "a later slice of the port"
@@ -114,16 +124,27 @@ def check_supported(cfg: ModelConfig) -> None:
     port."""
     if cfg.moe is not None:
         raise NotImplementedError(f"MoE FFNs come in {_LATER}")
-    if cfg.mixer != "attn":
-        raise NotImplementedError(f"{cfg.mixer} mixers (Mamba-2, ssd_scan) "
-                                  f"come in {_LATER}")
+    if cfg.mixer not in ("attn", "mamba", "hybrid"):
+        raise NotImplementedError(f"mixer {cfg.mixer!r} is not ported")
     if cfg.attn_kind == "mla":
         raise NotImplementedError(f"MLA attention comes in {_LATER}")
     if cfg.encoder_layers > 0 or cfg.cross_attention:
         raise NotImplementedError(f"encoder-decoder models come in {_LATER}")
-    if cfg.attn_kind not in ("mha", "gqa"):
+    if _has_attention(cfg) and cfg.attn_kind not in ("mha", "gqa"):
         raise NotImplementedError(f"attention kind {cfg.attn_kind!r} is not "
                                   "ported")
+
+
+def _has_attention(cfg: ModelConfig) -> bool:
+    return any(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def _rope(cfg: ModelConfig, max_pos: int, device):
+    """RoPE tables, or ``None`` for a model without attention layers
+    (mamba2-2.7b's max_seq of 2^20 would make 1M-row tables for nothing)."""
+    if not _has_attention(cfg):
+        return None
+    return rope_freqs(cfg.head_dim, max_pos, cfg.rope_theta, device)
 
 
 def _norm_module(cfg, dtype, device):
@@ -152,10 +173,16 @@ class FFN(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, dtype, device, generator):
+    """``norm1`` and ``attn`` or ``mamba`` (as ``cfg.mixer_kind(i)``
+    says), then ``norm2`` and ``ffn`` where ``cfg.d_ff > 0``."""
+
+    def __init__(self, cfg, i, dtype, device, generator):
         super().__init__()
         self.norm1 = _norm_module(cfg, dtype, device)
-        self.attn = Attention(cfg, dtype, device, generator)
+        if cfg.mixer_kind(i) == "attn":
+            self.attn = Attention(cfg, dtype, device, generator)
+        else:
+            self.mamba = Mamba(cfg, dtype, device, generator)
         if cfg.d_ff > 0:
             self.norm2 = _norm_module(cfg, dtype, device)
             self.ffn = FFN(cfg, dtype, device, generator)
@@ -174,8 +201,8 @@ class Transformer(nn.Module):
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype, device,
                                generator)
         self.final_norm = _norm_module(cfg, dtype, device)
-        self.blocks = nn.ModuleList(Block(cfg, dtype, device, generator)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, i, dtype, device, generator)
+                                    for i in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab, False, dtype,
                                  device, generator)
@@ -245,12 +272,15 @@ def forward(params, cfg: ModelConfig, tokens, impl="eager", device=None):
     with torch.no_grad():
         x = embed(params.embed, tokens)
         b, l, _ = x.shape
-        rope = rope_freqs(cfg.head_dim, max(cfg.max_seq, l), cfg.rope_theta,
-                          dev)
+        rope = _rope(cfg, max(cfg.max_seq, l), dev)
         positions = torch.arange(l, device=dev).expand(b, l)
-        for blk in params.blocks:
-            h = attention_train(blk.attn, _norm(cfg, blk.norm1, x), cfg,
-                                positions, rope, causal=True, impl=impl)
+        for i, blk in enumerate(params.blocks):
+            h = _norm(cfg, blk.norm1, x)
+            if cfg.mixer_kind(i) == "attn":
+                h = attention_train(blk.attn, h, cfg, positions, rope,
+                                    causal=True, impl=impl)
+            else:
+                h = mamba_train(blk.mamba, h, cfg, impl=impl)
             x = _ffn_residual(blk, cfg, x + h)
         x = _norm(cfg, params.final_norm, x)
         return _logits(params, cfg, x)
@@ -263,12 +293,15 @@ def forward(params, cfg: ModelConfig, tokens, impl="eager", device=None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """One zero-filled attention cache per layer on ``device`` (``None`` =
-    CUDA)."""
+    """One zero-filled cache per layer on ``device`` (``None`` = CUDA): an
+    attention cache of ``dtype`` or a float32 Mamba state, as
+    ``cfg.mixer_kind(i)`` says."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [init_attn_cache(cfg, batch, max_len, dtype, dev)
-            for _ in range(cfg.n_layers)]
+            if cfg.mixer_kind(i) == "attn"
+            else init_mamba_cache(cfg, batch, dev)
+            for i in range(cfg.n_layers)]
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, impl="kernel",
@@ -281,13 +314,16 @@ def prefill(params, cfg: ModelConfig, tokens, cache, impl="kernel",
     with torch.no_grad():
         x = embed(params.embed, tokens)
         b, l, _ = x.shape
-        rope = rope_freqs(cfg.head_dim, max(cfg.max_seq, l), cfg.rope_theta,
-                          dev)
+        rope = _rope(cfg, max(cfg.max_seq, l), dev)
         positions = torch.arange(l, device=dev).expand(b, l)
         new_cache = []
-        for blk, c in zip(params.blocks, cache):
-            h, c = attention_prefill(blk.attn, _norm(cfg, blk.norm1, x), cfg,
-                                     positions, rope, c, impl=impl)
+        for i, (blk, c) in enumerate(zip(params.blocks, cache)):
+            h = _norm(cfg, blk.norm1, x)
+            if cfg.mixer_kind(i) == "attn":
+                h, c = attention_prefill(blk.attn, h, cfg, positions, rope, c,
+                                         impl=impl)
+            else:
+                h, c = mamba_prefill(blk.mamba, h, cfg, c, impl=impl)
             new_cache.append(c)
             x = _ffn_residual(blk, cfg, x + h)
         x = _norm(cfg, params.final_norm, x)
@@ -310,11 +346,16 @@ def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
         b, l, _ = x.shape
         adv = None if length is None else \
             torch.as_tensor(length, dtype=torch.int32, device=dev).expand(b)
-        rope = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta, dev)
+        rope = _rope(cfg, cfg.max_seq, dev)
         new_cache = []
-        for blk, c in zip(params.blocks, cache):
-            h, c = attention_extend(blk.attn, _norm(cfg, blk.norm1, x), cfg,
-                                    rope, c, impl=impl, length=adv)
+        for i, (blk, c) in enumerate(zip(params.blocks, cache)):
+            h = _norm(cfg, blk.norm1, x)
+            if cfg.mixer_kind(i) == "attn":
+                h, c = attention_extend(blk.attn, h, cfg, rope, c, impl=impl,
+                                        length=adv)
+            else:
+                h, c = mamba_extend(blk.mamba, h, cfg, c, impl=impl,
+                                    length=adv)
             new_cache.append(c)
             x = _ffn_residual(blk, cfg, x + h)
         x = _norm(cfg, params.final_norm, x)
@@ -328,7 +369,10 @@ def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
 def _save_slots(layer):
     """What a decode step may overwrite in one layer's cache: each slot's
     ``len`` and its K/V rows at the write position (clamped into the
-    cache)."""
+    cache). A Mamba layer's decode returns a new state, so its old state
+    is kept as it is."""
+    if "state" in layer:
+        return dict(layer)
     at = layer["len"].clamp(0, layer["k"].shape[1] - 1)
     rows = torch.arange(at.shape[0], device=at.device)
     return {"at": at, "k": layer["k"][rows, at], "v": layer["v"][rows, at],
@@ -339,9 +383,13 @@ def _mask_cache(old, new, active):
     """Freeze the cache rows of inactive slots (requests still prefilling
     in other iterations must not be disturbed by the batched decode): put
     back, by index, the K/V rows the step wrote for them and their
-    ``len``."""
+    ``len``; of a Mamba layer, keep their old state rows and ``len``."""
     if active is None:
         return new
+    if "state" in new:
+        keep = active[:, None, None, None]
+        return {"state": torch.where(keep, new["state"], old["state"]),
+                "len": torch.where(active, new["len"], old["len"])}
     rows = torch.arange(active.shape[0], device=active.device)
     keep = active[:, None, None]
     for key in ("k", "v"):
@@ -362,12 +410,15 @@ def decode_step(params, cfg: ModelConfig, token, cache, impl="kernel",
                         *_cache_tensors(cache))
     with torch.no_grad():
         x = embed(params.embed, token)[:, None, :]
-        rope = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta, dev)
+        rope = _rope(cfg, cfg.max_seq, dev)
         new_cache = []
-        for blk, c in zip(params.blocks, cache):
+        for i, (blk, c) in enumerate(zip(params.blocks, cache)):
             old = None if active is None else _save_slots(c)
-            h, c = attention_decode(blk.attn, _norm(cfg, blk.norm1, x), cfg,
-                                    rope, c, impl=impl)
+            h = _norm(cfg, blk.norm1, x)
+            if cfg.mixer_kind(i) == "attn":
+                h, c = attention_decode(blk.attn, h, cfg, rope, c, impl=impl)
+            else:
+                h, c = mamba_decode(blk.mamba, h, cfg, c, impl=impl)
             new_cache.append(_mask_cache(old, c, active))
             x = _ffn_residual(blk, cfg, x + h)
         x = _norm(cfg, params.final_norm, x)

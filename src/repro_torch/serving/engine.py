@@ -1,11 +1,13 @@
 """Serving engine: slotted KV caches, chunked-prefill + batched decode
 steps, iteration-level scheduling (Orca-style continuous batching).
 
-The engine owns a [max_batch, max_len] cache per layer; requests are
-admitted into slots, prefilled (whole-prompt or chunk-at-a-time, per the
-scheduler, through ``extend`` with the chunk right-padded to a power-of-two
-bucket), then decoded together — one ``decode_step`` over all slots per
-iteration, with the inactive slots masked. A copy of the JAX package's
+The engine owns a [max_batch, max_len] cache (or a [max_batch] Mamba
+state) per layer; requests are admitted into slots, prefilled
+(whole-prompt or chunk-at-a-time, per the scheduler, through ``extend``
+with the chunk right-padded to a power-of-two bucket; a Mamba layer's
+chunk runs the eager chunked SSD, never the ``ssd_scan`` kernel, as in the
+JAX package), then decoded together — one ``decode_step`` over all slots
+per iteration, with the inactive slots masked. A copy of the JAX package's
 engine in which each jitted entry point is an eager call (one per bucket
 size; CUDA graphs are later work) and a slot's cache row is a view of the
 engine's cache, written in place.
@@ -97,15 +99,18 @@ class ServingEngine:
 
     def _extend(self, tokens, slot: int, length: int):
         """Run a chunk for one slot: the slot's cache row as views ->
-        extend (K/V written through the views) -> the new ``len`` back.
-        ``tokens`` is padded to its bucket."""
+        extend (K/V written through the views) -> the new ``len`` and, of a
+        Mamba layer, the new state (a new tensor) back into the slot's
+        row. ``tokens`` is padded to its bucket."""
         row = [{k: t[slot:slot + 1] for k, t in layer.items()}
                for layer in self.cache]
         logits, row = extend(self.params, self.cfg, tokens[None, :], row,
                              impl=self.impl, length=length,
                              device=self.device)
         for layer, r in zip(self.cache, row):
-            layer["len"][slot:slot + 1] = r["len"]
+            for key in ("len", "state"):
+                if key in r:
+                    layer[key][slot:slot + 1] = r[key]
         return torch.argmax(logits, -1)[0]
 
     @staticmethod
@@ -198,11 +203,15 @@ class ServingEngine:
                          truncated=bool(unfinished))
 
     def _reset_slot(self, slot: int):
-        """Reset a slot for a fresh request: live length to zero. KV
-        contents are deliberately left stale — every attention path masks
-        reads by ``len``."""
+        """Reset a slot for a fresh request: live length to zero plus the
+        (small) recurrent state rows. KV contents are deliberately left
+        stale — every attention path masks reads by ``len`` — but a Mamba
+        state is read whole, so a reused slot must not start from the last
+        request's."""
         for layer in self.cache:
             layer["len"][slot] = 0
+            if "state" in layer:
+                layer["state"][slot] = 0
 
 
 def summarize(finished: list[ServeRequest], stats: list[IterationStats],

@@ -153,7 +153,7 @@ def test_routes_and_counters():
     assert ops.launch_counts() == before_l
     assert set(ops.launch_counts()) == {"mapping_eval", "mapping_eval_fused",
                                         "decode_attention",
-                                        "flash_attention"}
+                                        "flash_attention", "ssd_scan"}
 
 
 def test_build_sources_exist():

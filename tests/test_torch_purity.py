@@ -27,6 +27,7 @@ def test_main_path_imports_no_jax_and_no_reference():
         "import repro_torch.kernels.ops, repro_torch.core.observability\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.models.mamba2, repro_torch.kernels.ssd_scan\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(bad)\n"
@@ -82,6 +83,9 @@ def test_default_device_is_cuda_and_never_falls_back():
     cfg = get("qwen1.5-0.5b").reduced()
     params = init_model(cfg, device="cpu")
     cache = init_cache(cfg, 1, 8, device="cpu")
+    m_cfg = get("mamba2-2.7b").reduced()
+    m_params = init_model(m_cfg, device="cpu")
+    m_cache = init_cache(m_cfg, 1, 8, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
     calls = [
         lambda: timing.resolve_device(None),
@@ -89,7 +93,10 @@ def test_default_device_is_cuda_and_never_falls_back():
         lambda: init_cache(cfg, 1, 8),
         lambda: ServingEngine(params, cfg),
         lambda: prefill(params, cfg, tokens, cache),
+        lambda: init_cache(m_cfg, 1, 8),
+        lambda: prefill(m_params, m_cfg, tokens, m_cache),
         lambda: serve.main([]),
+        lambda: serve.main(["--arch", "mamba2-2.7b"]),
         lambda: compass.search_mapping(spec, batches, hw, [2], n_blocks=1),
         lambda: compass.explore(scenario, bo_iters=1, bo_init=1),
         lambda: torch_evaluator.PopulationEvaluator(
