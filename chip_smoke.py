@@ -14,8 +14,13 @@ Phases — any failure raises and the script exits non-zero:
            orders): bitwise, and both against the float64 numpy reference
            at 1e-5 relative. The attention kernels at the shapes of
            tests/test_kernels.py and at llama3.2-3b's (decode B 8, Hq 24,
-           Hkv 8, D 128, S 1024, seeded lengths; flash B 2, L 512 causal,
-           and Lq 100 < Lk 512): 2e-5 in float32, 2e-2 in bfloat16.
+           Hkv 8, D 128, S 1024, seeded lengths; flash B 2, L 512 and
+           2048 causal, and Lq 100 < Lk 512) and, for flash, at every D
+           in {32, 64, 96, 128}, causal and bidirectional, ragged L,
+           L < 16 and Hq / Hkv of 1, 3 and 8: 2e-5 in float32, 2e-2 in
+           bfloat16 (the bfloat16 tensor-core kernel also within 2e-2 of
+           the largest value); decode with a float32 q over a bfloat16
+           cache at 2e-5 and a bfloat16 q over a float32 cache at 2e-2.
            The SSD scan kernel at mamba2-2.7b's prefill shape (B 2, L 512,
            H 80, P 64, N 128), at the shapes of tests/test_kernels.py, at
            a ragged L (700) and at L < 8 (5), its inputs strided slices
@@ -41,8 +46,17 @@ Phases — any failure raises and the script exits non-zero:
            1e-4 of the largest, argmax equal to the engine's token wherever
            the top-two gap exceeds that); then ``prefill`` of 2 prompts of
            512 tokens through the flash kernel (28 launches), its logits
-           and caches against ``impl="eager"`` and against ``extend``.
-           Then the same at the full width of mamba2-2.7b (64 layers,
+           and caches against ``impl="eager"`` and against ``extend``;
+           one more orca run with float32 weights over a bfloat16 cache
+           (decode takes a float32 q). Then llama3.2-3b in bfloat16
+           weights and cache: ``prefill`` of 2 x 2048 tokens through the
+           bfloat16 flash kernel (28 launches) and eagerly, the kernel
+           held to its plain version within 2e-2 of the largest value on
+           each layer's own q/k/v, the end-to-end kernel-vs-eager logit
+           gap and argmax agreement printed, the prefill under
+           ``torch.profiler``; one orca engine run and one profiled.
+           Then the same as for llama at the full width of mamba2-2.7b
+           (64 layers,
            seeded random float32 weights), after llama's weights are
            freed: its engine runs launch NO kernel (prompts go through
            the eager chunked SSD of ``extend``, decode through the
@@ -58,7 +72,9 @@ Phases — any failure raises and the script exits non-zero:
            could take for the same bytes (3.35 TB/s) or operations
            (67 TFLOP/s float32, 989 TFLOP/s bfloat16): the mapping-eval
            kernels at P in {64, 512, 2048, 4096} (with one (b, p) chain
-           alone), decode at S in {1024, 8192}, flash at L in {512, 2048},
+           alone), decode at S in {1024, 8192}, flash at L in {512, 2048}
+           (float32 through the FMA kernel, bfloat16 through the
+           tensor-core kernel),
            the SSD scan at L in {512, 4096} (no library call computes it);
 6. profile one hardware point's mapping search (the search path's GA)
            under ``torch.profiler``: wall, device busy time and share, and
@@ -97,6 +113,8 @@ ATTN_KERNELS = {
                          "src/repro/kernels/decode_attention.py:27"),
     "flash_attention": (f"{CSRC}/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:24"),
+    "flash_attention_bf16": (f"{CSRC}/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:24"),
 }
 ATTN_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 # the Mamba-2 path's kernel: (its source, the body of the TPU kernel)
@@ -114,6 +132,7 @@ MAIN_POP, MAIN_GENS = 512, 16
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
 SERVE_CHUNK = 64
+BF16_PROMPT = 2048             # the bfloat16 prefill: 2 prompts of 2048
 LOGIT_REL = 1e-4               # teacher-forced logits: of the largest |logit|
 # A 64-layer random-weight Mamba-2 stack carries float32 rounding forward
 # and grows it layer by layer, so two valid float32 evaluations of its
@@ -126,14 +145,22 @@ SPREAD_FACTOR = 10.0
 # causal) for flash; the first of each list is the serving path's
 DECODE_MAIN = (8, 24, 8, 1024, 128)
 FLASH_MAIN = (2, 24, 8, 512, 512, 128, True)
+FLASH_BF16_MAIN = (2, 24, 8, 2048, 2048, 128, True)  # the bf16 prefill's
 DECODE_PARITY = [DECODE_MAIN, (2, 8, 2, 257, 64), (1, 4, 4, 96, 32),
                  (3, 4, 1, 130, 64)]
+# every D, causal and bidirectional, Lq < Lk, ragged L (not a multiple of
+# the tiles), L < 16, and Hq / Hkv of 1, 3 and 8
 FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                 (1, 4, 4, 64, 64, 64, True), (2, 8, 2, 96, 160, 64, True),
-                (1, 6, 3, 33, 57, 32, False), (1, 2, 1, 128, 128, 128, True)]
+                (1, 6, 3, 33, 57, 32, False), (1, 2, 1, 128, 128, 128, True),
+                FLASH_BF16_MAIN, (1, 8, 8, 77, 77, 32, True),
+                (1, 6, 2, 130, 200, 64, False),
+                (2, 8, 1, 200, 333, 96, True), (1, 3, 1, 9, 9, 128, True),
+                (1, 24, 8, 13, 13, 96, False), (1, 4, 4, 150, 150, 32, False),
+                (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False)]
 DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128)]
 FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
-               (2, 24, 8, 2048, 2048, 128, True)]
+               FLASH_BF16_MAIN]
 PARITY_POPS = (64, 2048)
 TIME_POPS = (64, 512, 2048, 4096)
 
@@ -472,9 +499,29 @@ def phase_parity(ev) -> dict:
               "ref_rtol": 1e-5, "ref_individuals": int(sel.size)})
     return errs
 
+def attn_kernel(name: str, dtype: str) -> str:
+    """The kernel (launch counter) that ``name`` reaches in ``dtype``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    if name == "flash_attention":
+        return fa.KERNEL_OF[getattr(torch, dtype)]
+    return name
+
+
+# each attention kernel -> (its serving path's shape, dtype)
+ATTN_MAIN = {"decode_attention": (DECODE_MAIN, "float32"),
+             "flash_attention": (FLASH_MAIN, "float32"),
+             "flash_attention_bf16": (FLASH_BF16_MAIN, "bfloat16")}
+
+
 def phase_attention_parity() -> dict:
-    """Each attention kernel against its plain version on the same inputs;
-    returns the largest float32 error at the serving path's shapes."""
+    """Each attention kernel against its plain version on the same inputs,
+    and the decode kernel with q and caches of different types (float32
+    weights over a bfloat16 cache, bfloat16 weights over a float32 one) at
+    the tolerance of q's type; returns each kernel's error at its serving
+    path's shape."""
     import torch
 
     errs = {}
@@ -492,15 +539,40 @@ def phase_attention_parity() -> dict:
                       f"{name} {shape} {dtype}: {got.dtype} {tuple(got.shape)}"
                       f" vs {want.dtype} {tuple(want.shape)}")
                 err = float((got.float() - want.float()).abs().max())
-                check(torch.isfinite(got).all().item() and err <= tol,
+                largest = float(want.float().abs().max())
+                kernel = attn_kernel(name, dtype)
+                # the tensor-core kernel also within tol of the largest
+                bound = min(tol, tol * largest) \
+                    if kernel == "flash_attention_bf16" else tol
+                check(torch.isfinite(got).all().item() and err <= bound,
                       f"{name} {shape} {dtype} differs from its plain "
-                      f"version: max abs err {err} > {tol}")
-                if i == 0 and dtype == "float32":
-                    errs[name] = err
-                emit({"phase": "parity", "kernel": name,
+                      f"version: max abs err {err} > {bound}")
+                main = ATTN_MAIN[kernel] == (shape, dtype)
+                if main:
+                    errs[kernel] = err
+                emit({"phase": "parity", "kernel": kernel,
                       "shape": list(shape), "dtype": dtype,
-                      "max_abs_err": err, "tol": tol,
-                      "serving_shape": i == 0})
+                      "max_abs_err": err, "tol": bound, "largest": largest,
+                      "serving_shape": main})
+    for q_dtype, kv_dtype in (("float32", "bfloat16"),
+                              ("bfloat16", "float32")):
+        tol = ATTN_TOLS[q_dtype]
+        what = f"{q_dtype} q over a {kv_dtype} cache"
+        for i, shape in enumerate(DECODE_PARITY):
+            inp = decode_inputs(shape, kv_dtype, seed=i)
+            inp["q"] = inp["q"].to(getattr(torch, q_dtype))
+            got = run_attention("decode_attention", inp, "cuda")
+            want = run_attention("decode_attention", inp, "plain")
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype == inp["q"].dtype,
+                  f"decode_attention {shape} {what}: output {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            check(torch.isfinite(got).all().item() and err <= tol,
+                  f"decode_attention {shape} {what} differs from its plain "
+                  f"version: max abs err {err} > {tol}")
+            emit({"phase": "parity", "kernel": "decode_attention",
+                  "shape": list(shape), "dtype": what, "max_abs_err": err,
+                  "tol": tol})
     return errs
 
 
@@ -717,10 +789,11 @@ def _decode_dispatches(cfg, n_dec: int) -> dict:
     return {"decode_attention:cuda": n_dec * n_attn} if n_attn else {}
 
 
-def _engine_run(params, cfg, arch: str, sched_name: str,
-                device) -> tuple[dict, dict]:
-    """One ``ServingEngine.run``; returns its record and the token
-    streams {rid: (prompt, generated)}."""
+def _engine_run(params, cfg, arch: str, sched_name: str, device,
+                cache_dtype=None) -> tuple[dict, dict]:
+    """One ``ServingEngine.run`` (with the weights' dtype for its cache
+    unless ``cache_dtype`` says otherwise); returns its record and the
+    token streams {rid: (prompt, generated)}."""
     import torch
 
     from repro_torch.kernels import ops
@@ -729,8 +802,11 @@ def _engine_run(params, cfg, arch: str, sched_name: str,
 
     sched = (SCHEDULERS[sched_name](chunk=SERVE_CHUNK)
              if sched_name == "chunked_prefill" else SCHEDULERS[sched_name]())
+    weights = next(params.parameters()).dtype
+    cache_dtype = cache_dtype or weights
     eng = ServingEngine(params, cfg, max_batch=SERVE_REQUESTS,
-                        max_len=SERVE_MAX_LEN, device=device)
+                        max_len=SERVE_MAX_LEN, cache_dtype=cache_dtype,
+                        device=device)
     reqs = _serve_requests(cfg.vocab)
     torch.cuda.synchronize()
     ops.clear_dispatch_stats()                     # counts to 0 just before
@@ -755,6 +831,8 @@ def _engine_run(params, cfg, arch: str, sched_name: str,
     summ = summarize(res.finished, res.stats)
     out_tokens = summ["output_tokens"]
     rec = {"phase": "serve", "run": "engine", "arch": arch,
+           "weights": str(weights).removeprefix("torch."),
+           "cache": str(cache_dtype).removeprefix("torch."),
            "scheduler": sched_name, "wall_s": wall,
            "tokens_per_s": out_tokens / wall, "output_tokens": out_tokens,
            "prefill_tokens": sum(st.n_prefill_tokens for st in res.stats),
@@ -767,15 +845,17 @@ def _engine_run(params, cfg, arch: str, sched_name: str,
 
 
 def _engine_profile(params, cfg, arch: str, device) -> dict:
-    """One more orca run of the engine under ``torch.profiler`` (its
-    launches are not the path's count): device busy share, and the device
-    time in the hand-written kernels, in matrix products and in the
-    rest."""
+    """One more orca run of the engine (its cache in the weights' dtype)
+    under ``torch.profiler`` (its launches are not the path's count):
+    device busy share, and the device time in the hand-written kernels, in
+    matrix products and in the rest."""
     from repro_torch.serving import OrcaScheduler
     from repro_torch.serving.engine import ServingEngine
 
+    weights = next(params.parameters()).dtype
     eng = ServingEngine(params, cfg, max_batch=SERVE_REQUESTS,
-                        max_len=SERVE_MAX_LEN, device=device)
+                        max_len=SERVE_MAX_LEN, cache_dtype=weights,
+                        device=device)
     reqs = _serve_requests(cfg.vocab)
     prof, kern = _profiled(lambda: eng.run(reqs, OrcaScheduler()))
     del eng
@@ -784,12 +864,13 @@ def _engine_profile(params, cfg, arch: str, device) -> dict:
         return sum(_dev_us(e) for e in kern if pred(e.key.lower())) / 1e3
 
     rec = {"phase": "serve", "run": "profile", "arch": arch,
+           "weights": str(weights).removeprefix("torch."),
            "scheduler": "orca", **prof,
            "hand_kernel_ms": {name: device_ms(lambda k, n=name: n in k)
                               for name in ("decode_attention",
                                            "flash_attention", "ssd_scan")},
            "gemm_ms": device_ms(lambda k: "gemm" in k or "xmma" in k
-                                or "cutlass" in k)}
+                                or "cutlass" in k or "nvjet" in k)}
     rec["other_device_ms"] = (prof["device_busy_ms"] - rec["gemm_ms"]
                               - sum(rec["hand_kernel_ms"].values()))
     emit(rec)
@@ -994,10 +1075,19 @@ def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
     emit({"phase": "serve", "run": "init", "arch": arch,
           "params": n_params, "bytes": 4 * n_params,
           "seconds": time.perf_counter() - t0})
-    runs, streams = {}, None
+    runs, streams, orca = {}, None, None
     for name in ("vllm", "orca", "chunked_prefill"):
         runs[name], got = _engine_run(params, cfg, arch, name, device)
         streams = streams or got
+        orca = got if name == "orca" else orca
+    if kernel == "flash_attention":
+        # float32 weights over a bfloat16 cache: decode takes a float32 q
+        runs["orca_bf16_cache"], got = _engine_run(
+            params, cfg, arch, "orca", device, cache_dtype=torch.bfloat16)
+        same = sum(got[rid][1] == orca[rid][1] for rid in got)
+        emit({"phase": "serve", "run": "bf16_cache_vs_f32_cache",
+              "arch": arch, "requests": len(got),
+              "same_tokens_as_float32_cache": same})
     profile = _engine_profile(params, cfg, arch, device)
     pre = _prefill_check(params, cfg, arch, kernel, device)
     replay = _replay(params, cfg, arch, streams, device, pre["tol"])
@@ -1007,20 +1097,141 @@ def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
             "prefill": pre}
 
 
+def _bf16_layer_check(params, cfg, toks, device) -> dict:
+    """Along the eager bfloat16 prefill's own trajectory, every layer's
+    q/k/v through the bfloat16 flash kernel and through its plain version:
+    within ATTN_TOLS["bfloat16"] of the largest plain value (these
+    launches are not the path's count)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention, transformer
+
+    b, l = toks.shape
+    tol = ATTN_TOLS["bfloat16"]
+    worst = 0.0
+    with torch.no_grad():
+        rope = transformer._rope(cfg, max(cfg.max_seq, l), device)
+        positions = torch.arange(l, device=device).expand(b, l)
+        x = params.embed.e[toks]
+        for blk in params.blocks:
+            h = transformer._norm(cfg, blk.norm1, x)
+            q, k, v, _ = attention._project_qkv(blk.attn, h, cfg, positions,
+                                                rope)
+            got = fa.flash_attention_cuda(q, k, v, True)
+            want = fa.flash_attention_plain(q, k, v, True)
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            check(torch.isfinite(got).all().item() and err <= tol * scale,
+                  f"flash_attention_bf16 on the bf16 prefill path: a "
+                  f"layer's output differs from its plain version by {err} "
+                  f"(largest {scale})")
+            worst = max(worst, err / scale)
+            x = transformer._ffn_residual(
+                blk, cfg, x + attention.attention_train(
+                    blk.attn, h, cfg, positions, rope, impl="eager"))
+    torch.cuda.synchronize()
+    return {"max_rel_layer_err": worst, "tol_of_largest": tol}
+
+
+def _serve_bf16(device) -> dict:
+    """llama3.2-3b at full width and depth in bfloat16 weights and cache:
+    ``prefill`` of 2 x BF16_PROMPT tokens through the bfloat16 flash kernel
+    (one launch per layer) and eagerly, the kernel held to its plain
+    version layer by layer on the prefill's own q/k/v, the end-to-end
+    kernel-vs-eager gap printed; the prefill under ``torch.profiler``; one
+    orca engine run and one profiled orca run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, init_model, prefill
+
+    arch = SERVE_ARCH
+    cfg = get(arch).model
+    check(cfg.n_layers == SERVE_LAYERS, f"{arch} has {cfg.n_layers} layers")
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, dtype=bf16, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    emit({"phase": "serve", "run": "init", "arch": arch, "weights": "bfloat16",
+          "params": n_params, "bytes": 2 * n_params,
+          "seconds": time.perf_counter() - t0})
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(2, BF16_PROMPT)), device=device)
+
+    def run(impl):
+        cache = init_cache(cfg, 2, BF16_PROMPT, bf16, device)
+        return prefill(params, cfg, toks, cache, impl=impl, device=device)
+
+    runs = {}
+    for impl in ("kernel", "eager"):
+        run(impl)                                  # warm
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            ops.clear_dispatch_stats()             # counts to 0 just before
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = run(impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if impl == "kernel":
+            launches, disp = ops.launch_counts(), ops.dispatch_stats()
+        runs[impl] = (logits, wall)
+    want = cfg.n_layers
+    check(launches["flash_attention_bf16"] == want
+          and sum(launches.values()) == want
+          and disp == {"flash_attention:cuda": want},
+          f"bf16 prefill: launches {launches}, dispatches {disp}; expected "
+          f"{want} flash_attention_bf16 launches")
+    k_logits, e_logits = runs["kernel"][0].float(), runs["eager"][0].float()
+    check(torch.isfinite(k_logits).all().item()
+          and tuple(k_logits.shape) == (2, cfg.vocab),
+          f"bf16 prefill logits: shape {tuple(k_logits.shape)}")
+    layers = _bf16_layer_check(params, cfg, toks, device)
+    prof, _ = _profiled(lambda: run("kernel"))
+    pre = {"phase": "serve", "run": "prefill", "arch": arch,
+           "weights": "bfloat16", "cache": "bfloat16",
+           "kernel": "flash_attention_bf16", "batch": 2,
+           "prompt": BF16_PROMPT,
+           "wall_s": {impl: runs[impl][1] for impl in runs},
+           "tokens_per_s": {impl: 2 * BF16_PROMPT / runs[impl][1]
+                            for impl in runs},
+           "launches": launches, "dispatches": disp,
+           "kernel_vs_eager_max_rel_logit_err": float(
+               (k_logits - e_logits).abs().max() / e_logits.abs().max()),
+           "argmax_equal": int((k_logits.argmax(-1)
+                                == e_logits.argmax(-1)).sum()),
+           "per_layer": layers, "profile": prof}
+    emit(pre)
+    engine, _ = _engine_run(params, cfg, arch, "orca", device)
+    profile = _engine_profile(params, cfg, arch, device)
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill": pre, "engine": engine, "profile": profile}
+
+
 def phase_serve(device) -> dict:
-    """The serving path at the full width of llama3.2-3b, then of
+    """The serving path at the full width of llama3.2-3b in float32 (and
+    its float32-weights / bfloat16-cache engine run), in bfloat16, then of
     mamba2-2.7b (whose engine runs launch no kernel: prompts go through
     the eager chunked SSD of ``extend``, decode through the one-step
     recurrence; only ``prefill`` reaches the SSD kernel)."""
     llama = _serve_arch(SERVE_ARCH, SERVE_LAYERS, "flash_attention", device)
+    bf16 = _serve_bf16(device)
     mamba = _serve_arch(MAMBA_ARCH, MAMBA_LAYERS, "ssd_scan", device)
-    return {"llama": llama, "mamba": mamba,
+    return {"llama": llama, "llama_bf16": bf16, "mamba": mamba,
             "launches": {
                 "decode_attention": sum(r["launches"]["decode_attention"]
                                         for r in llama["engine"].values()),
                 "flash_attention":
                     llama["prefill"]["launches"]["flash_attention"],
+                "flash_attention_bf16":
+                    bf16["prefill"]["launches"]["flash_attention_bf16"],
                 "ssd_scan": mamba["prefill"]["launches"]["ssd_scan"]}}
+
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
@@ -1077,8 +1288,8 @@ def phase_times(ev, runs: dict) -> dict:
 def phase_attention_times(serve: dict) -> dict:
     """CUDA-event times of each attention kernel, its plain version and the
     library call on the same inputs (library and kernel in turns: library,
-    kernel, kernel, library), beside the bound. Returns the records at the
-    serving path's shapes in float32."""
+    kernel, kernel, library), beside the bound. Returns the records at each
+    kernel's serving path's shape (ATTN_MAIN)."""
     at_main = {}
     for name, shapes, make in (("decode_attention", DECODE_TIMES,
                                 decode_inputs),
@@ -1086,26 +1297,27 @@ def phase_attention_times(serve: dict) -> dict:
                                 flash_inputs)):
         for i, shape in enumerate(shapes):
             for dtype in ATTN_TOLS:
+                kernel = attn_kernel(name, dtype)
                 inp = make(shape, dtype, seed=100 + i)
                 t = {how: [] for how in ("cuda", "library")}
                 for how in ("library", "cuda", "cuda", "library"):
                     t[how].append(_time_ms(
                         lambda how=how: run_attention(name, inp, how), 20))
-                rec = {"kernel": name, "shape": list(shape), "dtype": dtype,
+                rec = {"kernel": kernel, "shape": list(shape), "dtype": dtype,
                        "kernel_ms": sum(t["cuda"]) / 2,
                        "library_ms": sum(t["library"]) / 2,
                        "kernel_ms_runs": t["cuda"],
                        "library_ms_runs": t["library"],
                        "plain_ms": _time_ms(
                            lambda: run_attention(name, inp, "plain"), 3, 1),
-                       "launches_on_path": serve["launches"][name],
+                       "launches_on_path": serve["launches"][kernel],
                        **attention_bound(name, inp)}
                 rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
                 rec["kernel_over_library"] = \
                     rec["kernel_ms"] / rec["library_ms"]
                 emit(rec)
-                if i == 0 and dtype == "float32":
-                    at_main[name] = rec
+                if ATTN_MAIN[kernel] == (shape, dtype):
+                    at_main[kernel] = rec
     return at_main
 
 def phase_ssd_times(serve: dict) -> dict:

@@ -111,10 +111,22 @@ def params_from_jax(tree, cfg, device, dtype=torch.float32):
 
 def cache_from_jax(caches, device):
     """A list of per-layer cache dicts with numpy leaves (``k``, ``v``,
-    ``len`` of an attention layer; ``state``, ``len`` of a Mamba layer) as
-    the port's caches on ``device`` (``None`` = CUDA)."""
+    ``len`` of an attention layer, float32 or bfloat16; ``state``, ``len``
+    of a Mamba layer) as the port's caches on ``device`` (``None`` =
+    CUDA), in the leaves' types."""
     from .timing import resolve_device
 
     dev = resolve_device(device)
-    return [{k: torch.tensor(np.asarray(v), device=dev)
-             for k, v in layer.items()} for layer in caches]
+    return [{k: _tensor(v, dev) for k, v in layer.items()}
+            for layer in caches]
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; a bfloat16 array (numpy
+    has no such type of its own, so it arrives as ``ml_dtypes.bfloat16``)
+    goes through float32, which holds every bfloat16 value exactly."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.tensor(x.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.tensor(x, device=device)

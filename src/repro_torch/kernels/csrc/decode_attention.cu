@@ -5,10 +5,13 @@
 //     o[b, h] = softmax_t(q[b, h] . k[b, t, g] * scale) @ v[b, t, g]
 //
 // for t < lengths[b] (clamped to S), g = h / rep, rep = Hq / Hkv. The
-// running max, sum and accumulator are float32 whatever the storage type
-// (float32 or bfloat16), with the reference's masking: a masked score is
-// -1e30, its weight is zeroed AFTER the exp, and the output divides by the
-// sum where it is not 0, else by 1.
+// running max, sum and accumulator are float32 whatever the storage types,
+// with the reference's masking: a masked score is -1e30, its weight is
+// zeroed AFTER the exp, and the output divides by the sum where it is not
+// 0, else by 1. q and the cache are each float32 or bfloat16, of one type
+// or not (say float32 activations over a bfloat16 cache): as in the TPU
+// kernel each operand is upcast on its own, and q is never rounded to the
+// cache's type. The output is in q's type.
 //
 // Design: one block per (sequence b, kv head g) serves the rep query heads
 // of that group, so each K/V row of the cache is read from device memory
@@ -87,11 +90,11 @@ inline size_t smem_floats(int rep, int d) {
          + kWarps * 32;                         // one tile of weights a warp
 }
 
-template <typename T>
+template <typename TQ, typename T>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
-                        const int* __restrict__ lengths, T* __restrict__ out,
+                        const int* __restrict__ lengths, TQ* __restrict__ out,
                         int s_len, int hq, int hkv, int d, float scale,
                         Strides st) {
   extern __shared__ float smem[];
@@ -179,7 +182,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  T* ob = out + static_cast<long long>(b) * hq * d +
+  TQ* ob = out + static_cast<long long>(b) * hq * d +
           static_cast<long long>(g) * rep * d;
   for (int i = tid; i < rep * d; i += kThreads) {
     const float l = run_l[i / d];
@@ -187,7 +190,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename TQ, typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int n_batch, int s_len, int hq, int hkv, int d,
            float scale, const Strides& st, cudaStream_t stream) {
@@ -195,23 +198,24 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   if (bytes > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t set = cudaFuncSetAttribute(
-      decode_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      decode_attention_kernel<TQ, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(n_batch, hkv);
-  decode_attention_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  decode_attention_kernel<TQ, T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), s_len, hq, hkv, d, scale, st);
+      static_cast<TQ*>(out), s_len, hq, hkv, d, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Strides are in elements; the head
-// dimension is contiguous. Returns a cudaError_t code (0 on success).
+// dtype (the caches') and q_dtype: 0 float32, 1 bfloat16. Strides are in
+// elements; the head dimension is contiguous. Returns a cudaError_t code
+// (0 on success).
 extern "C" int decode_attention_launch(
-    int dtype, const void* q, const void* k, const void* v,
+    int dtype, int q_dtype, const void* q, const void* k, const void* v,
     const void* lengths, void* out, int n_batch, int s_len, int hq, int hkv,
     int d, float scale, long long q_b, long long q_h, long long k_b,
     long long k_s, long long k_h, long long v_b, long long v_s, long long v_h,
@@ -219,12 +223,18 @@ extern "C" int decode_attention_launch(
   if (n_batch <= 0 || hkv <= 0) return 0;
   const Strides st{q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, lengths, out, n_batch, s_len, hq, hkv, d,
-                         scale, st, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, out, n_batch, s_len, hq,
-                                 hkv, d, scale, st, s);
+  if (dtype == 0 && q_dtype == 0)
+    return launch<float, float>(q, k, v, lengths, out, n_batch, s_len, hq,
+                                hkv, d, scale, st, s);
+  if (dtype == 1 && q_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, lengths, out, n_batch, s_len, hq, hkv, d, scale, st, s);
+  if (dtype == 1 && q_dtype == 0)
+    return launch<float, __nv_bfloat16>(q, k, v, lengths, out, n_batch,
+                                        s_len, hq, hkv, d, scale, st, s);
+  if (dtype == 0 && q_dtype == 1)
+    return launch<__nv_bfloat16, float>(q, k, v, lengths, out, n_batch,
+                                        s_len, hq, hkv, d, scale, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

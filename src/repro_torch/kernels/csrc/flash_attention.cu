@@ -1,33 +1,66 @@
 // Blocked online-softmax GQA attention for Hopper (sm_90a), plain C
-// interface: the prefill path's causal (or bidirectional) attention.
+// interface: the prefill path's causal (or bidirectional) attention. It
+// replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
+// (body _flash_kernel).
 //
 //     o[b, h, i] = softmax_j(q[b, h, i] . k[b, g, j] * scale) @ v[b, g, j]
 //
 // with g = h / rep, over keys j < lk and, when causal, j <= i + (lk - lq):
 // the queries sit at the end of the lk-long context. float32 running max,
-// sum and accumulator whatever the storage type (float32 or bfloat16), with
-// the reference's masking: a masked score is -1e30, its weight is zeroed
-// AFTER the exp, and the output divides by the sum where it is not 0, else
-// by 1 (a query row with no visible key gives 0).
+// sum and accumulator whatever the storage type, with the reference's
+// masking: a masked score is -1e30, its weight is zeroed AFTER the exp, and
+// the output divides by the sum where it is not 0, else by 1 (a query row
+// with no visible key gives 0). What bounds it on an H100 is operations,
+// 4 * D per visible (query, key) pair and head: at 67 TFLOP/s in float32,
+// at 989 TFLOP/s on the bfloat16 tensor cores.
 //
-// Design: one block of 128 threads per (b * Hq + h, tile of kBQ = 64
-// queries). The query tile is staged in shared memory once; the block then
-// walks the key/value tiles of kBK = 32 positions up to the causal
-// frontier of its last query (tiles wholly past it are never loaded),
-// staging each in shared memory as float32. The 128 threads form a 16 x 8
-// grid: thread (ty, tx) scores query rows ty + 16 i (i < 4) against key
-// columns tx + 8 j (j < 4), so the 8 threads of a row group are 8 lanes of
-// one warp and reduce the row's max and sum with three shuffles; the same
-// thread then accumulates p @ V for its 4 rows and the head-dimension
-// columns tx + 8 jj (jj < D / 8), in registers. Rows of Q and K are padded
-// by one float in shared memory so the lanes of a warp read distinct banks.
-// The products are float32 FMAs, not tensor-core instructions: at the
-// prefill shapes the kernel is bound by operations, and this first version
-// runs at the FMA units' rate, far below the bf16 tensor-core bound.
+// Two kernels, one per storage type; each type reaches exactly one.
+//
+// float32, flash_attention_kernel: one block of 128 threads per
+// (b * Hq + h, tile of kBQ = 64 queries). The query tile is staged in shared
+// memory once; the block then walks the key/value tiles of kBK = 32
+// positions up to the causal frontier of its last query (tiles wholly past
+// it are never loaded), staging each in shared memory as float32. The 128
+// threads form a 16 x 8 grid: thread (ty, tx) scores query rows ty + 16 i
+// (i < 4) against key columns tx + 8 j (j < 4), so the 8 threads of a row
+// group are 8 lanes of one warp and reduce the row's max and sum with three
+// shuffles; the same thread then accumulates p @ V for its 4 rows and the
+// head-dimension columns tx + 8 jj (jj < D / 8), in registers. Rows of Q
+// and K are padded by one float in shared memory so the lanes of a warp
+// read distinct banks. The products are float32 FMAs: TF32 tensor cores
+// would round the inputs to 10 mantissa bits, above float32's tolerance.
+//
+// bfloat16, flash_attention_bf16_kernel: FlashAttention-2's structure on
+// the tensor cores through mma.sync.m16n8k16 (bf16 operands, float32
+// accumulators). One block of 4 warps per (b * Hq + h, tile of 64 queries),
+// each warp owning 16 query rows; every head's last query tile (the
+// longest causal rows) goes out first, so the short tiles fill the last
+// wave. Q is copied once (cp.async -> shared -> ldmatrix) into registers
+// as A fragments for all of D. K/V tiles of 64 keys stream through a
+// 2-stage cp.async ring (16-byte cp.async.cg copies, one commit group per
+// tile): the next tile's copy is in flight while the current one is
+// computed on. Shared rows are padded by 16 bytes, so the 8 row addresses
+// of every ldmatrix fall on distinct banks. S = Q K^T goes through
+// ldmatrix'd K fragments; the online softmax runs in registers (row max
+// reduced over the 4 lanes that share a row with __shfl_xor_sync, weights
+// as exp2f(x log2(e) - m log2(e)) of the scaled scores x, per-lane partial
+// row sums reduced once at the end); P is re-packed from the S
+// accumulators into bf16 A fragments without a trip through shared
+// memory, and O += P V goes through ldmatrix.trans'd V fragments. P is
+// rounded to bfloat16 there, as SDPA's kernels do; the float32 plain
+// version does not, which the 2e-2 bfloat16 tolerance covers. Rows past lq
+// or lk are zero-filled by the copies (cp.async with a source size of 0)
+// and masked by position; tiles wholly past the causal frontier are never
+// loaded, and only tiles that cross the frontier or lk compute a mask. The
+// epilogue divides by the sum, rounds to bfloat16 and stores through
+// shared memory as 16-byte writes.
+// Not yet: wgmma, TMA, warp specialisation, a persistent grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,21 +78,7 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Strides {  // in elements; [B, H, L, D] with D contiguous
   long long q_b, q_h, q_l;
@@ -240,22 +259,353 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaBQ = 16 * kMmaWarps;  // queries per block, 16 per warp
+constexpr int kMmaBK = 64;              // keys per tile
+constexpr int kStages = 2;              // K/V tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared row pitch in bf16 elements: D plus 16 bytes, so that the 8 rows an
+// ldmatrix reads start 4 banks apart (mod 32) and never share a bank.
+template <int D>
+__host__ __device__ constexpr int pitch() { return D + 8; }
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * pitch<D>() *
+         (static_cast<size_t>(kMmaBQ) + 2 * kStages * kMmaBK);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  // a source size of 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b: a 16 x 16 bf16 A fragment (4 registers), a 16 x 8 bf16 B
+// fragment (2 registers), a 16 x 8 float32 accumulator (4 registers).
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Copy rows [row0, row0 + n_rows) of one head ([L, D] with row stride
+// `row_stride` elements) into a shared tile of pitch<D>(); rows at or past
+// `limit` are zero-filled.
+template <int D>
+__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long row_stride, int row0,
+                                          int n_rows, int limit) {
+  constexpr int nv = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < n_rows * nv; i += kMmaThreads) {
+    const int r = i / nv;
+    const int c = (i - r * nv) * 8;
+    const bool live = row0 + r < limit;
+    const __nv_bfloat16* g = live ? src + (row0 + r) * row_stride + c : src;
+    cp_async16(dst + r * pitch<D>() + c, g, live);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, int hq, int hkv,
+                            int lq, int lk, int causal, float scale,
+                            Strides st) {
+  constexpr int P = pitch<D>();
+  constexpr int kSteps = D / 16;      // k-steps of Q K^T; n-pairs of P V
+  constexpr int kNt = kMmaBK / 8;     // n-tiles of S (8 keys each)
+  constexpr int kDt = D / 8;          // n-tiles of O (8 columns each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kMmaBQ * P;                  // [kStages][BK][P]
+  __nv_bfloat16* vs = ks + kStages * kMmaBK * P;        // [kStages][BK][P]
+
+  // blocks go out x fastest: every head's last query tile (the longest
+  // causal rows) first, then the tile before it, and so on
+  const int bh = blockIdx.x;
+  const int b = bh / hq;
+  const int h = bh - b * hq;
+  const int g = h / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;  // row within the 8-row half of a fragment
+  const int tig = lane & 3;   // thread in the row's group of 4
+  const int offset = lk - lq;
+
+  const __nv_bfloat16* qh = q + b * st.q_b + h * st.q_h;
+  const __nv_bfloat16* kh = k + b * st.k_b + g * st.k_h;
+  const __nv_bfloat16* vh = v + b * st.v_b + g * st.v_h;
+
+  int k_end = lk;
+  if (causal) k_end = min(lk, min(q0 + kMmaBQ, lq) + offset);
+  const int n_tiles = k_end > 0 ? (k_end + kMmaBK - 1) / kMmaBK : 0;
+
+  // one commit group per K/V tile (the first also holds Q), and one per
+  // loop step whether or not it copies anything, so that waiting for all
+  // but the newest kStages - 1 groups always means tile t has landed
+  auto fetch = [&](int t) {
+    if (t < n_tiles) {
+      const int at = (t % kStages) * kMmaBK * P;
+      copy_tile<D>(ks + at, kh, st.k_l, t * kMmaBK, kMmaBK, lk);
+      copy_tile<D>(vs + at, vh, st.v_l, t * kMmaBK, kMmaBK, lk);
+    }
+    cp_async_commit();
+  };
+  copy_tile<D>(qs, qh, st.q_l, q0, kMmaBQ, lq);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+  cp_async_wait<kStages - 2>();  // Q (and tile 0)
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments for every k-step of D
+  unsigned qf[kSteps][4];
+  {
+    const __nv_bfloat16* base = qs + (warp * 16 + (lane & 15)) * P +
+                                8 * (lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) ldmatrix_x4(qf[kk], base + 16 * kk);
+  }
+
+  float o[kDt][4];
+#pragma unroll
+  for (int j = 0; j < kDt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // rows gid and gid + 8, scaled scores
+  float l[2] = {0.0f, 0.0f};        // this lane's part of the row sums
+  const int row_a = q0 + warp * 16 + gid;  // query index of row gid
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kMmaBK;
+    const int stage = t % kStages;
+    fetch(t + kStages - 1);  // in flight while tiles t.. are computed on
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + stage * kMmaBK * P;
+    const __nv_bfloat16* vt = vs + stage * kMmaBK * P;
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float s[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    {
+      // matrix (lane >> 3): keys + 8 (mat >> 1), d + 8 (mat & 1)
+      const int mat = lane >> 3;
+      const __nv_bfloat16* base =
+          kt + ((lane & 7) + 8 * (mat >> 1)) * P + 8 * (mat & 1);
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < kNt / 2; ++jp) {
+          unsigned bf[4];
+          ldmatrix_x4(bf, base + 16 * jp * P + 16 * kk);
+          mma_bf16(s[2 * jp], qf[kk], bf[0], bf[1]);
+          mma_bf16(s[2 * jp + 1], qf[kk], bf[2], bf[3]);
+        }
+      }
+    }
+
+    // scale, mask (only a tile that crosses the causal frontier or lk),
+    // online softmax; s becomes the weights p
+    const bool need_mask =
+        k0 + kMmaBK > lk || (causal && k0 + kMmaBK - 1 > q0 + offset);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = row_a + 8 * half + offset;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[j][2 * half + e] * scale;
+          if (need_mask) {
+            const int kpos = k0 + 8 * j + 2 * tig + e;
+            if (kpos >= lk || (causal && kpos > qpos)) x = kNegInf;
+          }
+          s[j][2 * half + e] = x;
+          mt = fmaxf(mt, x);
+        }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m[half], mt);
+      const float alpha = exp2f((m[half] - m_new) * kLog2e);
+      const float m_log2 = m_new * kLog2e;
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * half + e];
+          // the weight of a masked score is zeroed after the exp
+          const float p = x == kNegInf ? 0.0f : exp2f(x * kLog2e - m_log2);
+          s[j][2 * half + e] = p;
+          rs += p;
+        }
+      l[half] = l[half] * alpha + rs;
+      m[half] = m_new;
+#pragma unroll
+      for (int j = 0; j < kDt; ++j) {
+        o[j][2 * half] *= alpha;
+        o[j][2 * half + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P re-packed from the S accumulators as bf16 A fragments
+    {
+      // matrix (lane >> 3): keys + 8 (mat & 1), d + 8 (mat >> 1)
+      const int mat = lane >> 3;
+      const __nv_bfloat16* base =
+          vt + ((lane & 7) + 8 * (mat & 1)) * P + 8 * (mat >> 1);
+#pragma unroll
+      for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+        const unsigned pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < kSteps; ++dp) {
+          unsigned bf[4];
+          ldmatrix_x4_trans(bf, base + 16 * kk * P + 16 * dp);
+          mma_bf16(o[2 * dp], pa, bf[0], bf[1]);
+          mma_bf16(o[2 * dp + 1], pa, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  // row sums over the 4 lanes of each row; divide by 1 where the sum is 0
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float sum = l[half];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    inv[half] = 1.0f / (sum == 0.0f ? 1.0f : sum);
+  }
+  // stage the warp's rows in the (consumed) Q tile, then 16-byte stores
+  __nv_bfloat16* os = qs + (warp * 16 + gid) * P + 2 * tig;
+#pragma unroll
+  for (int j = 0; j < kDt; ++j) {
+    *reinterpret_cast<unsigned*>(os + 8 * j) =
+        pack_bf16(o[j][0] * inv[0], o[j][1] * inv[0]);
+    *reinterpret_cast<unsigned*>(os + 8 * P + 8 * j) =
+        pack_bf16(o[j][2] * inv[1], o[j][3] * inv[1]);
+  }
+  __syncthreads();
+  __nv_bfloat16* oh = out + (static_cast<long long>(bh) * lq) * D;
+  constexpr int nv = D / 8;
+  for (int i = threadIdx.x; i < kMmaBQ * nv; i += kMmaThreads) {
+    const int r = i / nv;
+    const int c = (i - r * nv) * 8;
+    if (q0 + r < lq)
+      *reinterpret_cast<uint4*>(oh + static_cast<long long>(q0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(qs + r * P + c);
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int n_batch, int hq, int hkv, int lq, int lk, int causal,
+                float scale, const Strides& st, cudaStream_t stream) {
+  constexpr size_t bytes = mma_smem_bytes<D>();
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(n_batch * hq, (lq + kMmaBQ - 1) / kMmaBQ);
+  flash_attention_bf16_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), hq, hkv, lq, lk, causal, scale, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float32 to the FMA kernel, bfloat16 to the tensor-core kernel
+template <typename T, int D>
+int launch_for(const void* q, const void* k, const void* v, void* out,
+               int n_batch, int hq, int hkv, int lq, int lk, int causal,
+               float scale, const Strides& st, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<float, D>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
+                            scale, st, stream);
+  else
+    return launch_bf16<D>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
+                          scale, st, stream);
+}
+
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, void* out,
              int n_batch, int hq, int hkv, int lq, int lk, int causal,
              float scale, const Strides& st, cudaStream_t s) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
+      return launch_for<T, 32>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
                            scale, st, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
+      return launch_for<T, 64>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
                            scale, st, s);
     case 96:
-      return launch<T, 96>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
+      return launch_for<T, 96>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
                            scale, st, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
+      return launch_for<T, 128>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
                             scale, st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

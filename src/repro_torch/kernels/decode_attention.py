@@ -12,12 +12,15 @@ the TPU kernel ``repro/kernels/decode_attention.py::decode_attention``
 kv group, so each K/V row of the cache is read once per sequence; running
 max, sum and accumulator are float32, a masked score is -1e30 and its weight
 is zeroed after the exp, and the output divides by the sum where it is not
-0. What bounds it on an H100 is bytes: the live K/V rows,
-sum(len) * Hkv * D * 2 * itemsize, at 3.35 TB/s. This first version stages
-one 32-position tile at a time in shared memory with no overlap of loads
-and compute and no split over S, so at small batch it runs one block per
-(sequence, kv head) and is far from that bound; split-S and asynchronous
-copies are later work.
+0. Like it, it takes q and a cache of different types (float32 weights
+over the bfloat16 cache that ``init_cache`` defaults to, or bfloat16
+weights over a float32 cache), upcasting each operand on its own, and
+returns q's type. What bounds it on an H100 is
+bytes: the live K/V rows, sum(len) * Hkv * D * 2 * itemsize, at 3.35 TB/s.
+This first version stages one 32-position tile at a time in shared memory
+with no overlap of loads and compute and no split over S, so at small
+batch it runs one block per (sequence, kv head) and is far from that
+bound; split-S and asynchronous copies are later work.
 
 Beside the kernel: its plain torch version (the CPU path and the card's
 parity partner) and a launch counter (:data:`LAUNCHES`), bumped once per
@@ -85,7 +88,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.decode_attention_launch.argtypes = (
-        [ci] + [vp] * 5 + [ci] * 5 + [ctypes.c_float] + [ll] * 8 + [vp])
+        [ci] * 2 + [vp] * 5 + [ci] * 5 + [ctypes.c_float] + [ll] * 8 + [vp])
     lib.decode_attention_launch.restype = ci
     lib.decode_attention_error_string.argtypes = [ci]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -112,18 +115,19 @@ def _check_operand(name, x, dtype, device, dims):
 
 def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
     """Launch ``decode_attention_kernel`` on the current stream (no sync):
-    q [B, Hq, D], k/v caches [B, S, Hkv, D] (float32 or bfloat16, one
-    dtype, D a multiple of 8 up to 576, D contiguous), lengths [B] int32
-    -> [B, Hq, D] in q's dtype."""
+    q [B, Hq, D] and k/v caches [B, S, Hkv, D] (float32 or bfloat16, the
+    caches of one dtype, q of its own; D a multiple of 8 up to 576, D
+    contiguous), lengths [B] int32 -> [B, Hq, D] in q's dtype."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"decode_attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+    kv_dtype = getattr(k_cache, "dtype", None)
+    if q.dtype not in DTYPES or kv_dtype not in DTYPES:
+        raise TypeError(f"decode_attention takes float32 or bfloat16 q and "
+                        f"caches; got q {q.dtype}, cache {kv_dtype}")
     _check_operand("q", q, q.dtype, dev, 3)
-    _check_operand("k_cache", k_cache, q.dtype, dev, 4)
-    _check_operand("v_cache", v_cache, q.dtype, dev, 4)
+    _check_operand("k_cache", k_cache, kv_dtype, dev, 4)
+    _check_operand("v_cache", v_cache, kv_dtype, dev, 4)
     b, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
     if tuple(k_cache.shape) != (b, s, hkv, d) \
@@ -146,10 +150,10 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.decode_attention_launch(
-            DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, s, hq,
-            hkv, d, _scale(d, scale), q.stride(0), q.stride(1),
-            *k_cache.stride()[:3], *v_cache.stride()[:3], stream)
+            DTYPES[kv_dtype], DTYPES[q.dtype], q.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, s, hq, hkv, d, _scale(d, scale), q.stride(0),
+            q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3], stream)
     if rc != 0:
         msg = lib.decode_attention_error_string(rc).decode()
         raise RuntimeError(f"decode_attention launch failed: CUDA error {rc} "

@@ -1,25 +1,35 @@
-"""Blocked online-softmax GQA attention on the card (the prefill path): one
-hand-written CUDA kernel and its plain torch version.
+"""Blocked online-softmax GQA attention on the card (the prefill path): two
+hand-written CUDA kernels, one per storage type, and their plain torch
+version.
 
     o[b, h, i] = softmax_j(q[b, h, i] . k[b, h // rep, j] * scale) @ v[b, h // rep, j]
 
 over keys j < Lk and, when causal, j <= i + (Lk - Lq): the queries sit at
-the end of the Lk-long context. The kernel ``flash_attention_kernel`` in
-``csrc/flash_attention.cu`` replaces the TPU kernel
-``repro/kernels/flash_attention.py::flash_attention`` (body
-``_flash_kernel``): float32 online softmax over key tiles held in shared
-memory, tiles wholly past the causal frontier skipped, padding guarded by
-``kpos < Lk``, a masked score -1e30 with its weight zeroed after the exp,
-and a division by the sum where it is not 0. What bounds it on an H100 is
-operations, 4 * B * Hq * D per visible (query, key) pair, at the rate of
-the inputs' type; this first version does its products as float32 FMAs
-(no tensor cores, no TMA), so in bfloat16 it is far from the tensor-core
-bound. ``wgmma`` tiles are later work.
+the end of the Lk-long context. Both kernels, in ``csrc/flash_attention.cu``,
+replace the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
+(body ``_flash_kernel``): online softmax over key tiles held in shared
+memory with float32 running max, sum and accumulator, tiles wholly past the
+causal frontier skipped, padding guarded by ``kpos < Lk``, a masked score
+-1e30 with its weight zeroed after the exp, and a division by the sum where
+it is not 0. What bounds them on an H100 is operations, 4 * B * Hq * D per
+visible (query, key) pair, at the rate of the inputs' type.
 
-Beside the kernel: its plain torch version (the CPU path and the card's
-parity partner) and a launch counter (:data:`LAUNCHES`), bumped once per
-launch and nowhere else. :mod:`repro_torch.kernels.ops` dispatches between
-the two by the device of the tensors it is given.
+* float32 goes to ``flash_attention_kernel``: float32 FMAs (TF32 tensor
+  cores would round the inputs past float32's tolerance), so its bound is
+  67 TFLOP/s.
+* bfloat16 goes to ``flash_attention_bf16_kernel``: FlashAttention-2's
+  structure on the tensor cores (``mma.sync`` m16n8k16 with float32
+  accumulators, ``ldmatrix``, a 2-stage ``cp.async`` K/V ring), bound by
+  989 TFLOP/s. It rounds the softmax weights to bfloat16 before the
+  product with V, as SDPA does; the plain version does not, which the
+  bfloat16 tolerance covers. ``wgmma``, TMA and warp specialisation are
+  later work.
+
+Beside the kernels: their plain torch version (the CPU path and the card's
+parity partner) and one launch counter per kernel (:data:`LAUNCHES`),
+bumped once per launch and nowhere else. :mod:`repro_torch.kernels.ops`
+dispatches between kernel and plain version by the device of the tensors it
+is given.
 """
 from __future__ import annotations
 
@@ -35,7 +45,10 @@ from .decode_attention import DTYPES, NEG_INF, _check_operand, _scale
 _SOURCE = "flash_attention.cu"
 HEAD_DIMS = (32, 64, 96, 128)
 
-LAUNCHES = {"flash_attention": 0}
+# the kernel each storage type reaches, by its launch counter's name
+KERNEL_OF = {torch.float32: "flash_attention",
+             torch.bfloat16: "flash_attention_bf16"}
+LAUNCHES = {name: 0 for name in KERNEL_OF.values()}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -46,7 +59,8 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     with _LAUNCH_LOCK:
-        LAUNCHES["flash_attention"] = 0
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, scale=None):
@@ -88,10 +102,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
-    """Launch ``flash_attention_kernel`` on the current stream (no sync):
-    q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] (float32 or bfloat16, one dtype,
-    D in {32, 64, 96, 128} and contiguous; any strides over (b, h, l) that
-    are multiples of 8, so the transposed views of a [B, L, H, D]
+    """Launch the kernel of q's dtype (``flash_attention_kernel`` for
+    float32, ``flash_attention_bf16_kernel`` for bfloat16) on the current
+    stream (no sync): q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] (one dtype,
+    D in {32, 64, 96, 128} and contiguous; rows starting on 16-byte
+    boundaries: any strides over (b, h, l) that are multiples of 8 and a
+    16-byte aligned start, so the transposed views of a [B, L, H, D]
     projection go in without a copy) -> contiguous [B, Hq, Lq, D] in q's
     dtype."""
     dev = q.device
@@ -112,8 +128,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
         raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
-    if b * hq > 65_535:
-        raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65,535")
+    if b * hq > 65_535 or -(-lq // 64) > 65_535:
+        raise ValueError(f"B * Hq = {b * hq} or Lq / 64 = {-(-lq // 64)} "
+                         f"exceeds the grid's 65,535")
     out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -128,5 +145,5 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
                            f"({msg})")
     with _LAUNCH_LOCK:
-        LAUNCHES["flash_attention"] += 1
+        LAUNCHES[KERNEL_OF[q.dtype]] += 1
     return out

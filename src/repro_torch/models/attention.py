@@ -223,7 +223,7 @@ def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
     vc = _scatter_cache(cache["v"], v, pos)
     lengths = pos + 1
     if check_impl(impl) == "kernel":
-        o = ops.decode_attention(q.to(kc.dtype), kc, vc, lengths)
+        o = ops.decode_attention(q, kc, vc, lengths)   # q unrounded
     else:
         o = _xla_decode(q, kc, vc, lengths)
     o = o.to(x.dtype)
@@ -231,13 +231,22 @@ def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
     return y, {"k": kc, "v": vc, "len": lengths}
 
 
+def _promoted(q, cache):
+    """q and the cache in the type ``jnp.einsum`` computes their product
+    in: the wider of the two (a float32 q over a bfloat16 cache upcasts the
+    cache, a bfloat16 q over a float32 cache upcasts q; neither is ever
+    rounded down)."""
+    t = torch.promote_types(q.dtype, cache.dtype)
+    return q.to(t), cache.to(t)
+
+
 def _xla_decode(q, k_cache, v_cache, lengths):
     """q: [B, Hq, D]; caches: [B, S, Hkv, D]. Grouped-head einsums — the KV
     cache is never repeated per query head."""
     b, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, hkv, hq // hkv, d)
-    logits = torch.einsum("bgrd,bsgd->bgrs", qg, k_cache).float() \
+    qg, kc = _promoted(q.reshape(b, hkv, hq // hkv, d), k_cache)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, kc).float() \
         / float(np.sqrt(d))
     mask = torch.arange(s, device=q.device)[None, None, None, :] \
         < lengths[:, None, None, None]
@@ -273,7 +282,7 @@ def attention_extend(p, x, cfg, rope, cache, impl="kernel", length=None):
     vc = _scatter_span(cache["v"], v, off)
     new_len = (off + adv).to(torch.int32)
     o = _xla_extend(q, kc, vc, off, l)                   # [B, Hq, L, hd]
-    y = o.transpose(1, 2).reshape(b, l, -1)
+    y = o.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
     return dense(p.wo, y), {"k": kc, "v": vc, "len": new_len}
 
 
@@ -303,8 +312,8 @@ def _xla_extend(q, k_cache, v_cache, off, l):
     Grouped-head einsums (no KV repeat)."""
     b, hq, _, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, hkv, hq // hkv, l, d)
-    logits = torch.einsum("bgrld,bsgd->bgrls", qg, k_cache).float() \
+    qg, kc = _promoted(q.reshape(b, hkv, hq // hkv, l, d), k_cache)
+    logits = torch.einsum("bgrld,bsgd->bgrls", qg, kc).float() \
         / float(np.sqrt(d))
     qpos = off[:, None, None, None, None] \
         + torch.arange(l, device=q.device)[None, None, None, :, None]

@@ -150,10 +150,28 @@ def test_routes_and_counters():
         ops.flash_attention(meta, meta, meta)
     with pytest.raises(TypeError):
         ops.decode_attention(qd.numpy(), kc, vc, lens)
+    # q and caches of different types: the plain version upcasts each
+    # operand and keeps q's type; the launcher refuses the CPU tensors
+    mixed = ops.decode_attention(qd, kc.bfloat16(), vc.bfloat16(), lens)
+    assert torch.equal(mixed, da.decode_attention_plain(
+        qd, kc.bfloat16().float(), vc.bfloat16().float(), lens))
+    mixed = ops.decode_attention(qd.bfloat16(), kc, vc, lens)
+    assert mixed.dtype == torch.bfloat16 and torch.equal(
+        mixed, da.decode_attention_plain(qd.bfloat16().float(), kc, vc,
+                                         lens).bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_cuda(qd, kc.bfloat16(), vc.bfloat16(), lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert ops.launch_counts() == before_l
     assert set(ops.launch_counts()) == {"mapping_eval", "mapping_eval_fused",
                                         "decode_attention",
-                                        "flash_attention", "ssd_scan"}
+                                        "flash_attention",
+                                        "flash_attention_bf16", "ssd_scan"}
+    # float32 and bfloat16 each reach exactly one flash kernel, not the same
+    assert fa.KERNEL_OF == {torch.float32: "flash_attention",
+                            torch.bfloat16: "flash_attention_bf16"}
+    assert set(fa.launch_counts()) == set(fa.KERNEL_OF.values())
 
 
 def test_build_sources_exist():
@@ -176,26 +194,104 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# the card's parity shapes: every D, causal and bidirectional, Lq < Lk,
+# ragged L (not a multiple of the 64-row tiles), L < 16, Hq / Hkv of 1, 3, 8
+FLASH_CUDA_CASES = FLASH_CASES + [
+    (2, 24, 8, 512, 512, 128, True), (1, 24, 8, 100, 512, 128, True),
+    (1, 8, 8, 77, 77, 32, True), (1, 6, 2, 130, 200, 64, False),
+    (2, 8, 1, 200, 333, 96, True), (1, 3, 1, 9, 9, 128, True),
+    (1, 24, 8, 13, 13, 96, False), (1, 4, 4, 150, 150, 32, False),
+    (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal",
-                         FLASH_CASES + [(2, 24, 8, 512, 512, 128, True),
-                                        (1, 24, 8, 100, 512, 128, True)])
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", FLASH_CUDA_CASES)
 def test_cuda_flash_matches_plain(cuda_device, b, hq, hkv, lq, lk, d, causal,
                                   dtype, tol):
     q, k, v = (torch.as_tensor(a, device=cuda_device).to(getattr(torch,
                                                                   dtype))
                for a in _flash_inputs(lq + lk, b, hq, hkv, lq, lk, d))
-    before = ops.launch_counts()["flash_attention"]
+    before = ops.launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal)
     # transposed views of a [B, L, H, D] projection go in without a copy
     got_t = fa.flash_attention_cuda(q.transpose(1, 2).contiguous()
                                     .transpose(1, 2), k, v, causal)
     want = fa.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == before + 2
+    after = ops.launch_counts()
+    name = fa.KERNEL_OF[q.dtype]            # the one kernel of this dtype
+    assert {key: after[key] - before[key] for key in after} == \
+        {key: 2 if key == name else 0 for key in after}
     assert torch.equal(got, got_t)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# sha256 of the float32 kernel's output bytes at seeded inputs, as the
+# kernel of the previous release (before the bfloat16 kernel was added)
+# computed them on an H100 (sm_90a)
+FLASH_F32_DIGESTS = {
+    (1, 4, 4, 64, 64, 64, True):
+        "540cc121e0e8700885faa167ade6b53c12616ac9e645e4c82613fc3733e2145f",
+    (2, 8, 2, 96, 160, 64, True):
+        "0fbe3678b7ba5d8def1c90b345f746d4eed7f7ae48610b9e2e2193550e4ab42f",
+    (1, 6, 3, 33, 57, 32, False):
+        "10bd73a8e325d5710d3044e1c7b18fdd64ec7dd2599e59b75cdcabecac3da721",
+    (1, 2, 1, 128, 128, 128, True):
+        "8744fb2ae524e26a8f664e68a36b89b170f23bcd3f64a1eae35d27a77acb9f31",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", FLASH_CASES)
+def test_cuda_flash_float32_is_unchanged(cuda_device, b, hq, hkv, lq, lk, d,
+                                         causal):
+    """The float32 route launches the float32 FMA kernel, whose output is
+    bit for bit what it was before the bfloat16 kernel existed."""
+    import hashlib
+
+    q, k, v = (torch.as_tensor(a, device=cuda_device)
+               for a in _flash_inputs(lq + lk, b, hq, hkv, lq, lk, d))
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert ops.launch_counts()["flash_attention_bf16"] == \
+        before["flash_attention_bf16"]
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    assert digest == FLASH_F32_DIGESTS[(b, hq, hkv, lq, lk, d, causal)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol",
+                         [("float32", "bfloat16", 2e-5),
+                          ("bfloat16", "float32", 2e-2)])
+@pytest.mark.parametrize("b,hq,hkv,s,d",
+                         DECODE_CASES + [(8, 24, 8, 1024, 128)])
+def test_cuda_decode_mixed_types(cuda_device, b, hq, hkv, s, d, q_dtype,
+                                 kv_dtype, tol):
+    """q and caches of different types (float32 weights over a bfloat16
+    cache, bfloat16 weights over a float32 one): q is not rounded to the
+    cache's type, the output is in q's type, and it is within the
+    tolerance of q's type of the plain version, which upcasts each operand
+    on its own."""
+    q, kc, vc, lens = _decode_inputs(s + b, b, hq, hkv, s, d)
+    q = torch.as_tensor(q, device=cuda_device).to(getattr(torch, q_dtype))
+    kc, vc = (torch.as_tensor(a, device=cuda_device).to(getattr(torch,
+                                                                 kv_dtype))
+              for a in (kc, vc))
+    lens = torch.as_tensor(lens, device=cuda_device)
+    got = ops.decode_attention(q, kc, vc, lens)
+    want = da.decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if q_dtype == "float32":
+        # what a kernel that rounded q to bfloat16 would give
+        rounded = da.decode_attention_plain(q.bfloat16().float(), kc, vc,
+                                            lens)
+        assert float((rounded - want).abs().max()) > tol  # tells apart
 
 
 @pytest.mark.cuda
