@@ -20,7 +20,12 @@ Phases — any failure raises and the script exits non-zero:
            L < 16 and Hq / Hkv of 1, 3 and 8: 2e-5 in float32, 2e-2 in
            bfloat16 (the bfloat16 tensor-core kernel also within 2e-2 of
            the largest value); decode with a float32 q over a bfloat16
-           cache at 2e-5 and a bfloat16 q over a float32 cache at 2e-2.
+           cache at 2e-5 and a bfloat16 q over a float32 cache at 2e-2;
+           every decode case against the plain version in one range and
+           under the kernel's own split plan, at S 8192, at split-edge
+           lengths (0, 1, a range boundary - 1, at and + 1, S, past S), S
+           below one tile, S not a whole number of tiles, and a B * Hkv
+           that fills the card (one range).
            The SSD scan kernel at mamba2-2.7b's prefill shape (B 2, L 512,
            H 80, P 64, N 128), at the shapes of tests/test_kernels.py, at
            a ragged L (700) and at L < 8 (5), its inputs strided slices
@@ -72,7 +77,11 @@ Phases — any failure raises and the script exits non-zero:
            could take for the same bytes (3.35 TB/s) or operations
            (67 TFLOP/s float32, 989 TFLOP/s bfloat16): the mapping-eval
            kernels at P in {64, 512, 2048, 4096} (with one (b, p) chain
-           alone), decode at S in {1024, 8192}, flash at L in {512, 2048}
+           alone), decode at S in {1024, 8192} (with its split plan, its
+           device time per call from ``torch.profiler`` -- split and
+           combine kernels summed -- and its host time per call over
+           back-to-back calls, and the same two for the library call),
+           flash at L in {512, 2048}
            (float32 through the FMA kernel, bfloat16 through the
            tensor-core kernel),
            the SSD scan at L in {512, 4096} (no library call computes it);
@@ -146,8 +155,16 @@ SPREAD_FACTOR = 10.0
 DECODE_MAIN = (8, 24, 8, 1024, 128)
 FLASH_MAIN = (2, 24, 8, 512, 512, 128, True)
 FLASH_BF16_MAIN = (2, 24, 8, 2048, 2048, 128, True)  # the bf16 prefill's
+# a sixth entry "edges" sets the lengths to 0, 1, a split boundary - 1, at
+# and + 1, S and past S (in turn, as many as B takes) under the kernel's
+# split plan; shapes below: the engine's width at S 1024, S 8192 with many
+# ranges, S below one tile, S not a whole number of tiles with a wholly
+# empty range, S 8192 with one range (B * Hkv fills the card)
 DECODE_PARITY = [DECODE_MAIN, (2, 8, 2, 257, 64), (1, 4, 4, 96, 32),
-                 (3, 4, 1, 130, 64)]
+                 (3, 4, 1, 130, 64), (8, 24, 8, 1024, 128, "edges"),
+                 (7, 8, 2, 8192, 64, "edges"), (5, 6, 2, 20, 32, "edges"),
+                 (6, 4, 1, 300, 64, "edges"), (8, 24, 8, 8192, 128),
+                 (66, 32, 32, 8192, 32)]
 # every D, causal and bidirectional, Lq < Lk, ragged L (not a multiple of
 # the tiles), L < 16, and Hq / Hkv of 1, 3 and 8
 FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
@@ -265,11 +282,14 @@ def with_gathered(inp: dict) -> dict:
 
 def decode_inputs(shape, dtype: str, seed: int) -> dict:
     """Seeded decode inputs on the card: q [B, Hq, D], caches
-    [B, S, Hkv, D], lengths [B] in 1..S."""
+    [B, S, Hkv, D], lengths [B] in 1..S, or the split edges of
+    DECODE_PARITY when the shape ends in "edges"."""
     import numpy as np
     import torch
 
-    b, hq, hkv, s, d = shape
+    from repro_torch.kernels import decode_attention as da
+
+    b, hq, hkv, s, d = shape[:5]
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
 
@@ -277,10 +297,16 @@ def decode_inputs(shape, dtype: str, seed: int) -> dict:
         return torch.as_tensor(rng.standard_normal(sh, dtype=np.float32),
                                device="cuda").to(dt)
 
-    return {"q": normal(b, hq, d), "k": normal(b, s, hkv, d),
-            "v": normal(b, s, hkv, d),
-            "lengths": torch.as_tensor(rng.integers(1, s + 1, size=b),
-                                       dtype=torch.int32, device="cuda")}
+    inp = {"q": normal(b, hq, d), "k": normal(b, s, hkv, d),
+           "v": normal(b, s, hkv, d)}
+    lengths = rng.integers(1, s + 1, size=b)
+    if shape[5:] == ("edges",):
+        _, split_len = da.split_plan(b, hkv, s, da.sm_count("cuda"))
+        edges = [0, 1, split_len - 1, split_len, split_len + 1, s, s + 9]
+        lengths = np.array([edges[i % len(edges)] for i in range(b)])
+    inp["lengths"] = torch.as_tensor(lengths, dtype=torch.int32,
+                                     device="cuda")
+    return inp
 
 
 def flash_inputs(shape, dtype: str, seed: int) -> dict:
@@ -318,6 +344,10 @@ def run_attention(name: str, inp: dict, how: str):
             return da.decode_attention_cuda(q, k, v, lengths)
         if how == "plain":
             return da.decode_attention_plain(q, k, v, lengths)
+        if how == "plain_split":   # under the kernel's own split plan
+            n_split, _ = da.kernel_plan(q, k)
+            return da.decode_attention_plain(q, k, v, lengths,
+                                             n_split=n_split)
         mask = (torch.arange(k.shape[1], device=q.device)[None, :]
                 < lengths[:, None])[:, None, None, :]
         return F.scaled_dot_product_attention(
@@ -342,8 +372,9 @@ def attention_bound(name: str, inp: dict) -> dict:
     if name == "decode_attention":
         b, hq, d = q.shape
         s, hkv = k.shape[1], k.shape[2]
-        live = int(inp["lengths"].clamp(max=s).sum())
-        nbytes = live * hkv * d * 2 * item + 2 * q.numel() * item + 4 * b
+        live = int(inp["lengths"].clamp(min=0, max=s).sum())
+        nbytes = live * hkv * d * 2 * k.element_size() \
+            + 2 * q.numel() * item + 4 * b
         ops = 4 * hq * d * live
     else:
         b, hq, lq, d = q.shape
@@ -550,10 +581,13 @@ def phase_attention_parity() -> dict:
                 main = ATTN_MAIN[kernel] == (shape, dtype)
                 if main:
                     errs[kernel] = err
-                emit({"phase": "parity", "kernel": kernel,
-                      "shape": list(shape), "dtype": dtype,
-                      "max_abs_err": err, "tol": bound, "largest": largest,
-                      "serving_shape": main})
+                rec = {"phase": "parity", "kernel": kernel,
+                       "shape": list(shape), "dtype": dtype,
+                       "max_abs_err": err, "tol": bound, "largest": largest,
+                       "serving_shape": main}
+                if name == "decode_attention":
+                    rec.update(_decode_split_parity(inp, got, tol))
+                emit(rec)
     for q_dtype, kv_dtype in (("float32", "bfloat16"),
                               ("bfloat16", "float32")):
         tol = ATTN_TOLS[q_dtype]
@@ -572,8 +606,29 @@ def phase_attention_parity() -> dict:
                   f"version: max abs err {err} > {tol}")
             emit({"phase": "parity", "kernel": "decode_attention",
                   "shape": list(shape), "dtype": what, "max_abs_err": err,
-                  "tol": tol})
+                  "tol": tol, **_decode_split_parity(inp, got, tol)})
     return errs
+
+
+def _decode_split_parity(inp: dict, got, tol: float) -> dict:
+    """The decode kernel's output ``got`` against its plain version under
+    the kernel's own split plan (``max_abs_err`` above is against the plain
+    version in one range)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    n_split, split_len = da.kernel_plan(inp["q"], inp["k"])
+    want = run_attention("decode_attention", inp, "plain_split")
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(got.dtype == want.dtype and err <= tol,
+          f"decode_attention {tuple(inp['k'].shape)} differs from its plain "
+          f"version under its split plan ({n_split} x {split_len}): max abs "
+          f"err {err} > {tol}")
+    return {"n_split": n_split, "split_len": split_len,
+            "lengths": inp["lengths"].tolist()[:8],
+            "max_abs_err_split_plan": err}
 
 
 def phase_ssd_parity() -> float:
@@ -1315,10 +1370,67 @@ def phase_attention_times(serve: dict) -> dict:
                 rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
                 rec["kernel_over_library"] = \
                     rec["kernel_ms"] / rec["library_ms"]
+                if name == "decode_attention":
+                    rec.update(_decode_costs(inp))
                 emit(rec)
                 if ATTN_MAIN[kernel] == (shape, dtype):
                     at_main[kernel] = rec
     return at_main
+
+
+def _host_us_per_call(fn, calls: int = 50) -> float:
+    """Host time of one call over ``calls`` back-to-back calls with no sync
+    between them (the launch path alone while the device keeps up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * host / calls
+
+
+def _device_ms_per_call(kern: list, calls: int) -> float:
+    """Device time of one call from the profiler's records of ``calls``
+    calls: each kernel's mean time x its launches per call. The mean holds
+    where the profiler drops a record or two of a window."""
+    return sum(_dev_us(e) / e.count * max(1, round(e.count / calls))
+               for e in kern if e.count) / 1e3
+
+
+def _decode_costs(inp: dict, calls: int = 20) -> dict:
+    """The decode kernel's split plan, its device time per call from
+    ``torch.profiler`` (the split and combine kernels summed) and its host
+    time per call; the same two for the library call (every device kernel
+    it runs)."""
+    from repro_torch.kernels import decode_attention as da
+
+    rec = dict(zip(("n_split", "split_len"),
+                   da.kernel_plan(inp["q"], inp["k"])))
+    for how, key in (("cuda", ""), ("library", "library_")):
+        def run(how=how):
+            for _ in range(calls):
+                run_attention("decode_attention", inp, how)
+
+        run()
+        for _ in range(5):   # the profiler now and then records nothing
+            _, kern = _profiled(run)
+            mine = [e for e in kern if how == "library"
+                    or "decode_attention" in e.key]
+            if mine:
+                break
+        rec[f"{key}device_ms"] = \
+            _device_ms_per_call(mine, calls) if mine else None
+        rec[f"{key}device_kernels"] = {  # name: [records, mean ms]
+            e.key[:60]: [e.count, _dev_us(e) / e.count / 1e3]
+            for e in mine if e.count}
+        rec[f"{key}host_us_per_call"] = _host_us_per_call(
+            lambda how=how: run_attention("decode_attention", inp, how))
+    return rec
+
 
 def phase_ssd_times(serve: dict) -> dict:
     """CUDA-event times of the SSD kernel and its plain version (in turns:

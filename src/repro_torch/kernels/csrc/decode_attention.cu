@@ -1,4 +1,6 @@
-// GQA KV-cache decode attention for Hopper (sm_90a), plain C interface.
+// GQA KV-cache decode attention for Hopper (sm_90a), plain C interface. It
+// replaces the TPU kernel repro/kernels/decode_attention.py::decode_attention
+// (body _decode_kernel).
 //
 // One new query token per sequence attends over its cache:
 //
@@ -13,20 +15,47 @@
 // kernel each operand is upcast on its own, and q is never rounded to the
 // cache's type. The output is in q's type.
 //
-// Design: one block per (sequence b, kv head g) serves the rep query heads
-// of that group, so each K/V row of the cache is read from device memory
-// once per sequence (the property the TPU kernel was built around). The
-// block walks the live prefix of the cache in tiles of kTile positions;
-// each tile's K and V rows are staged in shared memory as float32 (K rows
-// padded by one float so lanes reading different rows hit different banks)
-// and every warp then serves one query head at a time: lane t scores cache
-// position t of the tile, the warp reduces max and sum with shuffles, and
-// the lanes split the head dimension to fold p @ V into the head's
-// accumulator, which lives in shared memory. Tiles at or past the
-// sequence's length are never loaded, so stale rows beyond it are never
-// read. What bounds it on an H100 is bytes (the live K/V rows); this first
-// version loads a tile, then computes on it, with no overlap and no split
-// over S, so it is far from that bound at small batch.
+// What bounds it on an H100 is bytes: the live K/V rows, read once, at
+// 3.35 TB/s. Even at rep = 3 the FMAs are a small share of the float32
+// rate at that byte rate, so it computes on the CUDA cores in float32.
+//
+// Design ("flash-decoding"): the live prefix of each sequence is split over
+// blocks. Block (b * Hkv + g, j) serves all rep query heads of kv group g,
+// so each K/V row is read once per sequence (the property the TPU kernel
+// was built around), over positions [j * split_len, (j + 1) * split_len);
+// the host picks split_len and the number of splits from the shapes alone
+// (repro_torch/kernels/decode_attention.py::split_plan), so nothing on the
+// device is read back. A split that starts at or past the sequence's
+// length writes an empty partial and returns: stale rows past a length are
+// never read. Inside a block, tiles of kTile positions stream through a
+// ring of kStages shared-memory stages in their storage type, by 16-byte
+// cp.async.cg copies, one commit group per tile, so the next tiles load
+// while the current one is computed on; rows past the split's live end are
+// zero-filled (source size 0) and masked by position. Scores and products
+// are float32 FMAs on the CUDA cores. On each tile:
+//   scores  a group of 8 lanes dots 2 positions with 4 heads at a time:
+//           each lane reads 16-byte chunks of the K rows (the 8 lanes of a
+//           group read 128 contiguous bytes of a row, so no bank conflict),
+//           widens each once for all 4 heads, and takes q's rows from
+//           shared memory, where they are kept as float32; the group's 8
+//           lanes then reduce-scatter their 8 sums in 7 shuffles, each lane
+//           ending with one whole dot product;
+//   softmax one warp per head updates the running max and sum and turns
+//           the tile's scores into weights;
+//   p @ V   each thread owns one or more units of (4 heads, one 16-byte
+//           chunk of D), widens each V chunk once for the 4 heads and
+//           keeps their sums in registers; with fewer units than threads
+//           the threads split the tile's positions into groups whose
+//           partial sums are added once, at the end of the split, through
+//           the ring's shared memory. A head's sums are rescaled only when
+//           its running max moved.
+// Each split then writes (m, l, acc[D]) in float32 to a workspace
+// [B, Hq, n_split, D + 2], and decode_attention_combine_kernel (grid
+// (B, Hq)) forms M = max m_j, L = sum l_j exp(m_j - M) and
+// o = sum acc_j exp(m_j - M) / (L == 0 ? 1 : L) in q's type. An empty split
+// (m = -1e30, l = 0, acc = 0) adds nothing; a length of 0 gives 0. With one
+// split the split kernel normalises and writes o itself, and no combine is
+// launched.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,18 +65,55 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 32;  // cache positions per tile: one per lane
+constexpr int kTile = 32;      // cache positions per tile
+constexpr int kGroup = 8;      // lanes that score positions together
+constexpr int kGroups = kThreads / kGroup;
+constexpr int kPos = kTile / kGroups;   // positions a group scores at once
+constexpr int kHeads = 4;      // heads per scoring pass and per p @ V unit
+constexpr int kMaxAcc = 32;    // float32 accumulators a thread may hold
+constexpr int kMinBlocks = 5;  // blocks per SM the registers must allow
+constexpr int kCombineThreads = 128;
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+static_assert(kTile % 32 == 0, "the softmax gives each lane whole positions");
+static_assert(kTile % kGroups == 0, "every group scores as many positions");
+static_assert(kPos * kHeads % kGroup == 0,
+              "a group's dot products split evenly over its lanes");
+static_assert(kHeads == 4, "p @ V reads a unit's weights as one float4");
 
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+// K/V tiles in flight: the next tile loads while one is computed on (at
+// D 128 a stage is 16 KB in bfloat16, 32 KB in float32)
+constexpr int kStages = 2;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  // a source size of 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one 16-byte chunk, widened to float32: 4 floats or 8 bfloat16s
+__device__ __forceinline__ void load_chunk(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+}
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* f) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -76,165 +142,494 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Sum N values v[0..N) over the O * 2 lanes of a group (lanes lg ^ O,
+// lg ^ O / 2, ... exchange halves): lane lg ends with the group's sums of
+// values lg * (N / (2 O)) + s in v[s], s < N / (2 O), after log2(2 O)
+// rounds of N / 2, N / 4, ... shuffles instead of N per round.
+template <int N, int O>
+__device__ __forceinline__ void group_sum(float* v, int lg) {
+  if constexpr (O > 0) {
+    const bool upper = lg & O;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = upper ? v[i] : v[i + N / 2];
+      const float keep = upper ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    group_sum<N / 2, O / 2>(v, lg);
+  }
+}
+
 struct Strides {
   long long q_b, q_h;        // q [B, Hq, D]
   long long k_b, k_s, k_h;   // k cache [B, S, Hkv, D]
   long long v_b, v_s, v_h;   // v cache [B, S, Hkv, D]
 };
 
-inline size_t smem_floats(int rep, int d) {
-  return static_cast<size_t>(kTile) * (d + 1)   // K tile, padded rows
-         + static_cast<size_t>(kTile) * d       // V tile
-         + 2 * static_cast<size_t>(rep) * d     // q rows, accumulators
-         + 2 * static_cast<size_t>(rep)         // running max and sum
-         + kWarps * 32;                         // one tile of weights a warp
+// heads padded to whole p @ V units
+__host__ __device__ inline int padded_heads(int rep) {
+  return (rep + kHeads - 1) / kHeads * kHeads;
+}
+
+// Shared memory of one split block: the K/V ring in the cache's type (after
+// the last tile, the position groups' p @ V partials
+// [kHeads * kV][kThreads] in the same bytes), then float32 q rows
+// [rep][d], weights [kTile][padded rep], and the running max, sum and
+// rescale factor of each head.
+template <typename T>
+size_t smem_bytes(int rep, int d) {
+  const size_t ring = sizeof(T) * 2 * kStages *
+                      static_cast<size_t>(kTile) * d;
+  const size_t red = sizeof(float) * kHeads * (16 / sizeof(T)) * kThreads;
+  const size_t floats = static_cast<size_t>(rep) * d +
+                        static_cast<size_t>(kTile) * padded_heads(rep) +
+                        3 * rep;
+  return (ring > red ? ring : red) + sizeof(float) * floats;
+}
+
+// A thread's share of a tile copy: the 16-byte chunks i = tid + j kThreads
+// (j = 0, 1, ...) of the tile's kTile x nch, at row i / nch and column
+// i % nch. The first is found by one division per block; each next one is
+// stepped to by (dr, dc) = (kThreads / nch, kThreads % nch) with no division.
+struct CopyPlan {
+  int r, c, dr, dc;
+};
+
+// Copy cache rows [row0, row0 + kTile) of one kv head of K and of V (row
+// strides in elements) into shared tiles [kTile][d]; rows at or past
+// `limit` are zero-filled.
+template <typename T>
+__device__ __forceinline__ void copy_tiles(T* kdst, T* vdst, const T* ksrc,
+                                           const T* vsrc, long long k_stride,
+                                           long long v_stride, int row0,
+                                           int limit, int d, CopyPlan cp) {
+  constexpr int kV = 16 / sizeof(T);
+  const int nch = d / kV;
+  const T* kb = ksrc + row0 * k_stride;
+  const T* vb = vsrc + row0 * v_stride;
+  int r = cp.r, c = cp.c;
+  while (r < kTile) {
+    const bool live = row0 + r < limit;
+    const int off = r * d + c * kV;
+    cp_async16(kdst + off, live ? kb + r * k_stride + c * kV : ksrc, live);
+    cp_async16(vdst + off, live ? vb + r * v_stride + c * kV : vsrc, live);
+    r += cp.dr;
+    c += cp.dc;
+    if (c >= nch) {
+      c -= nch;
+      ++r;
+    }
+  }
+}
+
+// acc[j][e] += sum over positions t = pg, pg + n_pg, ... < nt of
+// p[t][j] v[t][e] for the unit's first NH heads (weights p at pc, row
+// pitch hp; one 16-byte chunk of V at vc, row pitch d)
+template <int NH, typename T>
+__device__ __forceinline__ void pv_rows(float (*acc)[16 / sizeof(T)],
+                                        const float* pc, const T* vc, int hp,
+                                        int d, int pg, int n_pg, int nt) {
+  constexpr int kV = 16 / sizeof(T);
+#pragma unroll 2
+  for (int t = pg; t < nt; t += n_pg) {
+    const float4 p4 = *reinterpret_cast<const float4*>(pc + t * hp);
+    const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+    float vf[kV];
+    load_chunk(vc + t * d, vf);
+#pragma unroll
+    for (int j = 0; j < NH; ++j)
+#pragma unroll
+      for (int e = 0; e < kV; ++e) acc[j][e] = fmaf(p[j], vf[e], acc[j][e]);
+  }
 }
 
 template <typename TQ, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, TQ* __restrict__ out,
-                        int s_len, int hq, int hkv, int d, float scale,
-                        Strides st) {
-  extern __shared__ float smem[];
+                        float* __restrict__ part, int s_len, int split_len,
+                        int hq, int hkv, int d, float scale, Strides st) {
+  constexpr int kV = 16 / sizeof(T);        // cache elements per chunk
+  constexpr int kQV = 16 / sizeof(TQ);      // q elements per chunk
+  constexpr int kUnits = kMaxAcc / (kHeads * kV);  // p @ V units a thread
+  constexpr int kDots = kPos * kHeads;      // dot products a lane sums into
+  constexpr int kSums = kDots / kGroup;     // ... and holds once reduced
+  static_assert(kUnits >= 1, "a thread holds at least one unit");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rep = hq / hkv;
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;
+  const int hp = padded_heads(rep);
+  const int b = blockIdx.x / hkv;
+  const int g = blockIdx.x - b * hkv;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int dp = d + 1;
-  const int nv = d / 8;  // 8-element chunks per row
-  float* ks = smem;                    // [kTile][d + 1]
-  float* vs = ks + kTile * dp;         // [kTile][d]
-  float* qs = vs + kTile * d;          // [rep][d]
-  float* acc = qs + rep * d;           // [rep][d]
-  float* run_m = acc + rep * d;        // [rep]
-  float* run_l = run_m + rep;          // [rep]
-  float* ps = run_l + rep;             // [kWarps][32]
+  const int nch = d / kV;                   // 16-byte chunks per cache row
+  const int units = hp / kHeads * nch;      // (kHeads heads, chunk) units
+  const int tile_elems = kTile * d;
+  const size_t ring_bytes = sizeof(T) * 2 * kStages * tile_elems;
+  const size_t red_bytes = sizeof(float) * kHeads * kV * kThreads;
+
+  T* ring = reinterpret_cast<T*>(smem_raw);    // [kStages][2][kTile][d]
+  float* red = reinterpret_cast<float*>(smem_raw);  // after the last tile
+  float* qs = reinterpret_cast<float*>(
+      smem_raw + (ring_bytes > red_bytes ? ring_bytes : red_bytes));
+  float* ps = qs + rep * d;                 // [kTile][hp]
+  float* run_m = ps + kTile * hp;           // [rep]
+  float* run_l = run_m + rep;               // [rep]
+  float* alpha = run_l + rep;               // [rep]
 
   const int len = max(0, min(lengths[b], s_len));
+  const int start = split * split_len;
+  const int end = min(start + split_len, len);
+  // the p @ V units: with fewer units than threads, thread tid owns unit
+  // tid % units for position group tid / units; else units tid + i kThreads
+  const bool few = units < kThreads;
+  const int n_pg = few ? kThreads / units : 1;
+  const int pg = few ? tid / units : 0;
+  const int u0 = few ? tid - pg * units : tid;
+
+  if (start >= end) {   // nothing live here: an empty partial, or o = 0
+    if (n_split == 1) {
+      TQ* ob = out + static_cast<long long>(b) * hq * d +
+               static_cast<long long>(g) * rep * d;
+      for (int i = tid; i < rep * d; i += kThreads) store(ob + i, 0.0f);
+    } else {
+      for (int r = 0; r < rep; ++r) {
+        float* w = part + ((static_cast<long long>(b) * hq + g * rep + r) *
+                           n_split + split) * (d + 2);
+        for (int i = tid; i < d + 2; i += kThreads)
+          w[i] = i == 0 ? kNegInf : 0.0f;
+      }
+    }
+    return;
+  }
+
   const T* kb = k + b * st.k_b + g * st.k_h;
   const T* vb = v + b * st.v_b + g * st.v_h;
-
-  for (int i = tid; i < rep * nv; i += kThreads) {
-    const int r = i / nv;
-    const int c = (i - r * nv) * 8;
-    float f[8];
-    load8(q + b * st.q_b + static_cast<long long>(g * rep + r) * st.q_h + c,
-          f);
+  const int n_tiles = (end - start + kTile - 1) / kTile;
+  const CopyPlan plan{tid / nch, tid % nch, kThreads / nch, kThreads % nch};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) qs[r * d + c + j] = f[j];
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) {
+      T* kt = ring + 2 * i * tile_elems;
+      copy_tiles(kt, kt + tile_elems, kb, vb, st.k_s, st.v_s,
+                 start + i * kTile, end, d, plan);
+    }
+    cp_async_commit();
   }
-  for (int i = tid; i < rep * d; i += kThreads) acc[i] = 0.0f;
+
+  for (int i = tid; i < rep * (d / kQV); i += kThreads) {
+    const int r = i / (d / kQV);
+    const int c = (i - r * (d / kQV)) * kQV;
+    float f[kQV];
+    load_chunk(q + b * st.q_b + static_cast<long long>(g * rep + r) * st.q_h +
+                   c, f);
+#pragma unroll
+    for (int e = 0; e < kQV; ++e) qs[r * d + c + e] = f[e];
+  }
+  // the padded heads' weights stay 0, so their p @ V sums stay 0
+  for (int i = tid; i < kTile * hp; i += kThreads) ps[i] = 0.0f;
   for (int r = tid; r < rep; r += kThreads) {
     run_m[r] = kNegInf;
     run_l[r] = 0.0f;
   }
-
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int nt = min(kTile, len - t0);
-    __syncthreads();  // the previous tile is consumed; q/acc are written
-    for (int i = tid; i < nt * nv; i += kThreads) {
-      const int t = i / nv;
-      const int c = (i - t * nv) * 8;
-      const long long pos = t0 + t;
-      float fk[8], fv[8];
-      load8(kb + pos * st.k_s + c, fk);
-      load8(vb + pos * st.v_s + c, fv);
+  float acc[kUnits][kHeads][kV];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        ks[t * dp + c + j] = fk[j];
-        vs[t * d + c + j] = fv[j];
+  for (int i = 0; i < kUnits; ++i)
+#pragma unroll
+    for (int j = 0; j < kHeads; ++j)
+#pragma unroll
+      for (int e = 0; e < kV; ++e) acc[i][j][e] = 0.0f;
+
+  const int lg = tid & (kGroup - 1);
+  const int grp = tid / kGroup;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int nxt = it + kStages - 1;   // into the stage freed last round
+    if (nxt < n_tiles) {
+      T* kt = ring + 2 * (nxt % kStages) * tile_elems;
+      copy_tiles(kt, kt + tile_elems, kb, vb, st.k_s, st.v_s,
+                 start + nxt * kTile, end, d, plan);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();       // tile `it` has landed
+    __syncthreads();
+    const T* ks = ring + 2 * (it % kStages) * tile_elems;
+    const T* vs = ks + tile_elems;
+    const int t0 = start + it * kTile;
+    const int nt = min(kTile, end - t0);   // live rows of this tile
+
+    // scores: group grp dots positions grp + p kGroups (p < kPos) with
+    // kHeads heads per pass, each K and q chunk read once per pass; the
+    // group's 8 lanes then reduce-scatter the kDots sums
+    for (int r0 = 0; r0 < rep; r0 += kHeads) {
+      float dot[kDots];                     // [p * kHeads + j]
+#pragma unroll
+      for (int i = 0; i < kDots; ++i) dot[i] = 0.0f;
+      for (int c = lg; c < nch; c += kGroup) {
+        float kf[kPos][kV];
+#pragma unroll
+        for (int p = 0; p < kPos; ++p)
+          load_chunk(ks + (grp + p * kGroups) * d + c * kV, kf[p]);
+#pragma unroll
+        for (int j = 0; j < kHeads; ++j) {
+          if (r0 + j < rep) {
+            const float* qr = qs + (r0 + j) * d + c * kV;
+#pragma unroll
+            for (int e = 0; e < kV; e += 4) {
+              const float4 qq = *reinterpret_cast<const float4*>(qr + e);
+#pragma unroll
+              for (int p = 0; p < kPos; ++p) {
+                float& x = dot[p * kHeads + j];
+                x = fmaf(qq.x, kf[p][e], x);
+                x = fmaf(qq.y, kf[p][e + 1], x);
+                x = fmaf(qq.z, kf[p][e + 2], x);
+                x = fmaf(qq.w, kf[p][e + 3], x);
+              }
+            }
+          }
+        }
+      }
+      group_sum<kDots, kGroup / 2>(dot, lg);
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) {
+        const int i = lg * kSums + s;
+        const int r = r0 + i % kHeads;
+        const int t = grp + i / kHeads * kGroups;
+        if (r < rep) ps[t * hp + r] = t < nt ? dot[s] * scale : kNegInf;
       }
     }
     __syncthreads();
+
+    // online softmax: one warp per head, positions lane + 32 i per lane
     for (int r = warp; r < rep; r += kWarps) {
+      constexpr int kPer = kTile / 32;
+      float x[kPer];
+      float m_tile = kNegInf;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        x[i] = ps[(lane + 32 * i) * hp + r];
+        m_tile = fmaxf(m_tile, x[i]);
+      }
       const float m_prev = run_m[r];
-      const float l_prev = run_l[r];
-      const bool live = lane < nt;
-      float s = kNegInf;
-      if (live) {
-        const float* qr = qs + r * d;
-        const float* kr = ks + lane * dp;
-        float dot = 0.0f;
-        for (int c = 0; c < d; ++c) dot += qr[c] * kr[c];
-        s = dot * scale;
+      const float m_cur = fmaxf(m_prev, warp_max(m_tile));
+      float p_sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float p = lane + 32 * i < nt ? expf(x[i] - m_cur) : 0.0f;
+        ps[(lane + 32 * i) * hp + r] = p;
+        p_sum += p;
       }
-      const float m_cur = fmaxf(m_prev, warp_max(s));
-      const float alpha = expf(m_prev - m_cur);
-      const float p = live ? expf(s - m_cur) : 0.0f;
-      const float p_sum = warp_sum(p);
-      ps[warp * 32 + lane] = p;
-      __syncwarp();
-      float* ar = acc + r * d;
-      for (int c = lane; c < d; c += 32) {
-        float a = ar[c] * alpha;
-        for (int t = 0; t < nt; ++t) a += ps[warp * 32 + t] * vs[t * d + c];
-        ar[c] = a;
-      }
+      p_sum = warp_sum(p_sum);
       if (lane == 0) {
+        const float a = expf(m_prev - m_cur);
+        alpha[r] = a;
         run_m[r] = m_cur;
-        run_l[r] = l_prev * alpha + p_sum;
+        run_l[r] = run_l[r] * a + p_sum;
       }
-      __syncwarp();  // ps is rewritten by this warp's next head
+    }
+    __syncthreads();
+
+    // p @ V: each unit widens a V chunk once for its kHeads heads
+    if (pg < n_pg) {
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        const int u = u0 + i * kThreads;
+        if (u < units) {
+          const int r0 = u / nch * kHeads;
+          const int c = u - u / nch * nch;
+#pragma unroll
+          for (int j = 0; j < kHeads; ++j) {
+            if (r0 + j < rep) {
+              const float a = alpha[r0 + j];
+              if (a != 1.0f) {
+#pragma unroll
+                for (int e = 0; e < kV; ++e) acc[i][j][e] *= a;
+              }
+            }
+          }
+          const T* vc = vs + c * kV;
+          const float* pc = ps + r0;
+          switch (min(kHeads, rep - r0)) {   // the unit's live heads
+            case 1: pv_rows<1>(acc[i], pc, vc, hp, d, pg, n_pg, nt); break;
+            case 2: pv_rows<2>(acc[i], pc, vc, hp, d, pg, n_pg, nt); break;
+            case 3: pv_rows<3>(acc[i], pc, vc, hp, d, pg, n_pg, nt); break;
+            default: pv_rows<4>(acc[i], pc, vc, hp, d, pg, n_pg, nt);
+          }
+        }
+      }
+    }
+    __syncthreads();   // this stage and ps are rewritten next round
+  }
+  cp_async_wait<0>();
+
+  if (n_pg > 1) {   // add the position groups' partials, through the ring
+    __syncthreads();
+    if (pg < n_pg) {
+#pragma unroll
+      for (int j = 0; j < kHeads; ++j)
+#pragma unroll
+        for (int e = 0; e < kV; ++e)
+          red[(j * kV + e) * kThreads + tid] = acc[0][j][e];
+    }
+    __syncthreads();
+    if (pg == 0) {
+      for (int o = 1; o < n_pg; ++o)
+#pragma unroll
+        for (int j = 0; j < kHeads; ++j)
+#pragma unroll
+          for (int e = 0; e < kV; ++e)
+            acc[0][j][e] += red[(j * kV + e) * kThreads + o * units + u0];
     }
   }
+  if (pg != 0) return;
+#pragma unroll
+  for (int i = 0; i < kUnits; ++i) {
+    const int u = u0 + i * kThreads;
+    if (u < units) {
+      const int r0 = u / nch * kHeads;
+      const int c = u - u / nch * nch;
+#pragma unroll
+      for (int j = 0; j < kHeads; ++j) {
+        const int r = r0 + j;
+        if (r < rep) {
+          const long long h = static_cast<long long>(b) * hq + g * rep + r;
+          if (n_split == 1) {
+            const float l = run_l[r];
+            const float den = l == 0.0f ? 1.0f : l;
+            TQ* o = out + h * d + c * kV;
+#pragma unroll
+            for (int e = 0; e < kV; ++e) store(o + e, acc[i][j][e] / den);
+          } else {
+            float* w = part + (h * n_split + split) * (d + 2);
+            if (c == 0) {
+              w[0] = run_m[r];
+              w[1] = run_l[r];
+            }
+#pragma unroll
+            for (int e = 0; e < kV; ++e) w[2 + c * kV + e] = acc[i][j][e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Reduce x over the block's kCombineThreads threads with op; every thread
+// gets the result (`scratch` holds one value per warp).
+template <typename Op>
+__device__ __forceinline__ float block_reduce(float x, float* scratch,
+                                              Op op) {
+  constexpr int kW = kCombineThreads / 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = op(x, __shfl_xor_sync(0xffffffffu, x, o));
+  __syncthreads();   // scratch may still be read from a previous call
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = x;
   __syncthreads();
-  TQ* ob = out + static_cast<long long>(b) * hq * d +
-          static_cast<long long>(g) * rep * d;
-  for (int i = tid; i < rep * d; i += kThreads) {
-    const float l = run_l[i / d];
-    store(ob + i, acc[i] / (l == 0.0f ? 1.0f : l));
+  x = scratch[0];
+#pragma unroll
+  for (int i = 1; i < kW; ++i) x = op(x, scratch[i]);
+  return x;
+}
+
+// One block per (b, h): merge the n_split partials of part[b, h] into o.
+// The ranges' weights exp(m_j - M) are formed once, in shared memory, and
+// every head-dimension element then sums its n_split terms.
+template <typename TQ>
+__global__ void __launch_bounds__(kCombineThreads)
+decode_attention_combine_kernel(const float* __restrict__ part,
+                                TQ* __restrict__ out, int hq, int n_split,
+                                int d) {
+  extern __shared__ float wj[];             // [n_split]
+  __shared__ float scratch[kCombineThreads / 32];
+  const long long bh = static_cast<long long>(blockIdx.x) * hq + blockIdx.y;
+  const float* w = part + bh * n_split * (d + 2);
+  float m = kNegInf;
+  for (int j = threadIdx.x; j < n_split; j += kCombineThreads)
+    m = fmaxf(m, w[j * (d + 2)]);
+  m = block_reduce(m, scratch, [](float a, float b) { return fmaxf(a, b); });
+  float l = 0.0f;
+  for (int j = threadIdx.x; j < n_split; j += kCombineThreads) {
+    const float x = expf(w[j * (d + 2)] - m);
+    wj[j] = x;
+    l += w[j * (d + 2) + 1] * x;
+  }
+  l = block_reduce(l, scratch, [](float a, float b) { return a + b; });
+  const float den = l == 0.0f ? 1.0f : l;
+  for (int c = threadIdx.x; c < d; c += kCombineThreads) {
+    float o = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < n_split; ++j) o += w[j * (d + 2) + 2 + c] * wj[j];
+    store(out + bh * d + c, o / den);
   }
 }
 
 template <typename TQ, typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, int n_batch, int s_len, int hq, int hkv, int d,
-           float scale, const Strides& st, cudaStream_t stream) {
-  const size_t bytes = smem_floats(hq / hkv, d) * sizeof(float);
-  if (bytes > static_cast<size_t>(kMaxSmem))
+           void* out, void* part, int n_batch, int s_len, int hq, int hkv,
+           int d, int n_split, int split_len, float scale, const Strides& st,
+           cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const int rep = hq / hkv;
+  const size_t bytes = smem_bytes<T>(rep, d);
+  const int units = padded_heads(rep) / kHeads * (d / kV);
+  if (bytes > static_cast<size_t>(kMaxSmem) ||
+      units > kThreads * (kMaxAcc / (kHeads * kV)) || n_split < 1 ||
+      split_len < 1 || (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t set = cudaFuncSetAttribute(
       decode_attention_kernel<TQ, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(n_batch, hkv);
+  const dim3 grid(n_batch * hkv, n_split);
   decode_attention_kernel<TQ, T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<TQ*>(out), s_len, hq, hkv, d, scale, st);
+      static_cast<TQ*>(out), static_cast<float*>(part), s_len, split_len, hq,
+      hkv, d, scale, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  decode_attention_combine_kernel<TQ>
+      <<<dim3(n_batch, hq), kCombineThreads, sizeof(float) * n_split,
+         stream>>>(static_cast<const float*>(part), static_cast<TQ*>(out),
+                   hq, n_split, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype (the caches') and q_dtype: 0 float32, 1 bfloat16. Strides are in
-// elements; the head dimension is contiguous. Returns a cudaError_t code
-// (0 on success).
+// elements; the head dimension is contiguous. `part` is a float32
+// workspace [B, Hq, n_split, D + 2] (unused, and may be null, when n_split
+// is 1). Launches the split kernel and, when n_split > 1, the combine
+// kernel on `stream`. Returns a cudaError_t code (0 on success).
 extern "C" int decode_attention_launch(
     int dtype, int q_dtype, const void* q, const void* k, const void* v,
-    const void* lengths, void* out, int n_batch, int s_len, int hq, int hkv,
-    int d, float scale, long long q_b, long long q_h, long long k_b,
-    long long k_s, long long k_h, long long v_b, long long v_s, long long v_h,
-    void* stream) {
+    const void* lengths, void* out, void* part, int n_batch, int s_len,
+    int hq, int hkv, int d, int n_split, int split_len, float scale,
+    long long q_b, long long q_h, long long k_b, long long k_s, long long k_h,
+    long long v_b, long long v_s, long long v_h, void* stream) {
   if (n_batch <= 0 || hkv <= 0) return 0;
   const Strides st{q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && q_dtype == 0)
-    return launch<float, float>(q, k, v, lengths, out, n_batch, s_len, hq,
-                                hkv, d, scale, st, s);
+    return launch<float, float>(q, k, v, lengths, out, part, n_batch, s_len,
+                                hq, hkv, d, n_split, split_len, scale, st, s);
   if (dtype == 1 && q_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, lengths, out, n_batch, s_len, hq, hkv, d, scale, st, s);
+        q, k, v, lengths, out, part, n_batch, s_len, hq, hkv, d, n_split,
+        split_len, scale, st, s);
   if (dtype == 1 && q_dtype == 0)
-    return launch<float, __nv_bfloat16>(q, k, v, lengths, out, n_batch,
-                                        s_len, hq, hkv, d, scale, st, s);
+    return launch<float, __nv_bfloat16>(q, k, v, lengths, out, part, n_batch,
+                                        s_len, hq, hkv, d, n_split, split_len,
+                                        scale, st, s);
   if (dtype == 0 && q_dtype == 1)
-    return launch<__nv_bfloat16, float>(q, k, v, lengths, out, n_batch,
-                                        s_len, hq, hkv, d, scale, st, s);
+    return launch<__nv_bfloat16, float>(q, k, v, lengths, out, part, n_batch,
+                                        s_len, hq, hkv, d, n_split, split_len,
+                                        scale, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,31 +1,38 @@
-"""GQA KV-cache decode attention on the card: one hand-written CUDA kernel
-and its plain torch version.
+"""GQA KV-cache decode attention on the card: a hand-written split-S
+("flash-decoding") CUDA kernel and its plain torch version.
 
 One new token per sequence attends over its cache,
 
     o[b, h] = softmax_t(q[b, h] . k[b, t, h // rep] * scale) @ v[b, t, h // rep]
 
 over the positions t < lengths[b] (clamped to the cache length S). The
-kernel ``decode_attention_kernel`` in ``csrc/decode_attention.cu`` replaces
-the TPU kernel ``repro/kernels/decode_attention.py::decode_attention``
-(body ``_decode_kernel``). Like it, one program serves all query heads of a
-kv group, so each K/V row of the cache is read once per sequence; running
-max, sum and accumulator are float32, a masked score is -1e30 and its weight
-is zeroed after the exp, and the output divides by the sum where it is not
-0. Like it, it takes q and a cache of different types (float32 weights
-over the bfloat16 cache that ``init_cache`` defaults to, or bfloat16
-weights over a float32 cache), upcasting each operand on its own, and
-returns q's type. What bounds it on an H100 is
-bytes: the live K/V rows, sum(len) * Hkv * D * 2 * itemsize, at 3.35 TB/s.
-This first version stages one 32-position tile at a time in shared memory
-with no overlap of loads and compute and no split over S, so at small
-batch it runs one block per (sequence, kv head) and is far from that
-bound; split-S and asynchronous copies are later work.
+kernels in ``csrc/decode_attention.cu`` replace the TPU kernel
+``repro/kernels/decode_attention.py::decode_attention`` (body
+``_decode_kernel``). Like it, one block serves all query heads of a kv
+group, so each K/V row of the cache is read once per sequence; running max,
+sum and accumulator are float32, a masked score is -1e30 and its weight is
+zeroed after the exp, and the output divides by the sum where it is not 0.
+Like it, it takes q and a cache of different types (float32 weights over
+the bfloat16 cache that ``init_cache`` defaults to, or bfloat16 weights
+over a float32 cache), upcasting each operand on its own, and returns q's
+type. What bounds it on an H100 is bytes: the live K/V rows,
+sum(len) * Hkv * D * 2 * itemsize, at 3.35 TB/s.
+
+Unlike the TPU kernel, which walks S in order on one core, the card needs
+parallelism over S: :func:`split_plan` cuts the cache into ``n_split``
+ranges of ``split_len`` positions from the shapes and the card's SM count
+alone (no device value is read, so a call never syncs), one block per
+(sequence, kv head, range) streams its range through a ring of
+asynchronous copies, and ``decode_attention_combine_kernel`` merges the
+ranges' partial (max, sum, accumulator) in a second launch. One wrapper
+call is one launch on :data:`LAUNCHES`, but two device kernels when
+``n_split > 1``.
 
 Beside the kernel: its plain torch version (the CPU path and the card's
-parity partner) and a launch counter (:data:`LAUNCHES`), bumped once per
-launch and nowhere else. :mod:`repro_torch.kernels.ops` dispatches between
-the two by the device of the tensors it is given.
+parity partner, which follows any split plan it is given) and a launch
+counter (:data:`LAUNCHES`), bumped once per launch and nowhere else.
+:mod:`repro_torch.kernels.ops` dispatches between the two by the device of
+the tensors it is given.
 """
 from __future__ import annotations
 
@@ -41,6 +48,14 @@ _SOURCE = "decode_attention.cu"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 576
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's split plan: positions per tile (kTile in the source), the
+# shortest range worth a block of its own, and the blocks to aim for on
+# each SM (WAVES x BLOCKS_PER_SM of them); MIN_SPLIT_LEN and BLOCKS_PER_SM
+# were chosen on an H100 with tools/decode_split_sweep.py
+TILE = 32
+MIN_SPLIT_LEN = 64
+WAVES = 2
+BLOCKS_PER_SM = 4
 
 LAUNCHES = {"decode_attention": 0}
 _LAUNCH_LOCK = threading.Lock()
@@ -60,35 +75,103 @@ def _scale(d: int, scale: float | None) -> float:
     return float(1.0 / (d ** 0.5)) if scale is None else float(scale)
 
 
-def decode_attention_plain(q, k_cache, v_cache, lengths, scale=None):
+def split_len_of(s: int, n_split: int) -> int:
+    """Positions per range when S is cut into ``n_split`` ranges: a whole
+    number of tiles, at least one."""
+    per = -(-s // n_split)
+    return max(TILE, -(-per // TILE) * TILE)
+
+
+def split_plan(b: int, hkv: int, s: int, n_sm: int) -> tuple[int, int]:
+    """(n_split, split_len) for B sequences of Hkv kv heads over a cache of
+    S positions on a card of ``n_sm`` SMs: enough ranges for WAVES waves of
+    BLOCKS_PER_SM blocks on every SM, none shorter than MIN_SPLIT_LEN, and
+    one range once B * Hkv blocks fill the card. The ranges cover S; the
+    last ones may start past it (their blocks write empty partials)."""
+    cap = max(1, -(-s // MIN_SPLIT_LEN))
+    want = -(-WAVES * n_sm * BLOCKS_PER_SM // max(1, b * hkv))
+    n_split = min(max(want, 1), cap)
+    return n_split, split_len_of(s, n_split)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (read once per device)."""
+    dev = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+
+
+def kernel_plan(q, k_cache) -> tuple[int, int]:
+    """The split plan the kernel takes for these CUDA operands."""
+    b, _, _ = q.shape
+    _, s, hkv, _ = k_cache.shape
+    return split_plan(b, hkv, s, sm_count(q.device))
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, scale=None,
+                           n_split: int = 1):
     """q [B, Hq, D], caches [B, S, Hkv, D], lengths [B] -> [B, Hq, D] in
-    q's dtype: the kernel's arithmetic as torch ops, float32 throughout
-    (one pass over all S positions; the kernel's online rescaling gives the
-    same values up to float32 rounding)."""
+    q's dtype: the kernel's arithmetic as torch ops, float32 throughout.
+    With ``n_split == 1``, one pass over all S positions (the kernel's
+    online rescaling gives the same values up to float32 rounding); with
+    more, the kernel's split: each range of ``split_len_of(S, n_split)``
+    positions gives a partial (max, sum, accumulator), and the partials are
+    merged as the combine kernel merges them."""
     b, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hkv
     qg = q.float().reshape(b, hkv, rep, d)
     logits = torch.einsum("bgrd,bsgd->bgrs", qg, k_cache.float()) \
         * _scale(d, scale)
-    pos = torch.arange(s, device=q.device)
-    mask = (pos[None, :] < lengths.to(q.device)[:, None])[:, None, None, :]
-    logits = torch.where(mask, logits, NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
+    lengths = lengths.to(q.device)
+    if n_split == 1:
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
+        logits = torch.where(mask, logits, NEG_INF)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(logits - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
+        o = o / torch.where(l == 0, 1.0, l)
+        return o.reshape(b, hq, d).to(q.dtype)
+    split_len = split_len_of(s, n_split)
+    pad = n_split * split_len - s
+    pos = torch.arange(s + pad, device=q.device)
+    mask = (pos[None, :] < lengths.clamp(max=s)[:, None])
+    mask = mask.reshape(b, 1, 1, n_split, split_len)
+    logits = torch.nn.functional.pad(logits, (0, pad), value=NEG_INF)
+    logits = torch.where(mask, logits.reshape(b, hkv, rep, n_split,
+                                              split_len), NEG_INF)
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, 0, 0, pad))
+    m = logits.amax(dim=-1, keepdim=True)              # [b, g, r, n, 1]
     p = torch.where(mask, torch.exp(logits - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
-    o = o / torch.where(l == 0, 1.0, l)
+    l = p.sum(dim=-1)                                  # [b, g, r, n]
+    acc = torch.einsum("bgrnt,bntgd->bgrnd", p,
+                       vf.reshape(b, n_split, split_len, hkv, d))
+    m = m[..., 0]
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))    # [b, g, r, n]
+    total = (l * w).sum(dim=-1, keepdim=True)
+    o = (acc * w[..., None]).sum(dim=-2) / torch.where(total == 0, 1.0,
+                                                       total)
     return o.reshape(b, hq, d).to(q.dtype)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel's library (built on first use), with its C signatures."""
-    lib = build.load(_SOURCE)
+    return bind(build.load(_SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a library built from ``_SOURCE``."""
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.decode_attention_launch.argtypes = (
-        [ci] * 2 + [vp] * 5 + [ci] * 5 + [ctypes.c_float] + [ll] * 8 + [vp])
+        [ci] * 2 + [vp] * 6 + [ci] * 7 + [ctypes.c_float] + [ll] * 8 + [vp])
     lib.decode_attention_launch.restype = ci
     lib.decode_attention_error_string.argtypes = [ci]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -114,10 +197,12 @@ def _check_operand(name, x, dtype, device, dims):
 
 
 def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
-    """Launch ``decode_attention_kernel`` on the current stream (no sync):
-    q [B, Hq, D] and k/v caches [B, S, Hkv, D] (float32 or bfloat16, the
-    caches of one dtype, q of its own; D a multiple of 8 up to 576, D
-    contiguous), lengths [B] int32 -> [B, Hq, D] in q's dtype."""
+    """Launch ``decode_attention_kernel`` and, when the split plan has more
+    than one range, ``decode_attention_combine_kernel`` on the current
+    stream (no sync): q [B, Hq, D] and k/v caches [B, S, Hkv, D] (float32
+    or bfloat16, the caches of one dtype, q of its own; D a multiple of 8
+    up to 576, D contiguous, Hq / Hkv x D up to 4096), lengths [B] int32
+    -> [B, Hq, D] in q's dtype."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -146,13 +231,17 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
         raise ValueError(f"lengths must be a contiguous int32 [{b}] tensor "
                          f"on {dev}")
     lib = _lib()
+    n_split, split_len = split_plan(b, hkv, s, _sm_count(dev.index))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    part = torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
+                       device=dev) if n_split > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.decode_attention_launch(
             DTYPES[kv_dtype], DTYPES[q.dtype], q.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, s, hq, hkv, d, _scale(d, scale), q.stride(0),
+            out.data_ptr(), None if part is None else part.data_ptr(), b, s,
+            hq, hkv, d, n_split, split_len, _scale(d, scale), q.stride(0),
             q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3], stream)
     if rc != 0:
         msg = lib.decode_attention_error_string(rc).decode()

@@ -6,6 +6,8 @@ host) the hand-written kernels against their plain versions.
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 in float32 (sums
 in another order), 2e-2 in bfloat16 (one rounding of the output).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -82,25 +84,111 @@ def test_flash_plain_matches_pallas(b, hq, hkv, lq, lk, d, causal, dtype,
             atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("b,hq,hkv,s,d", DECODE_CASES)
-def test_decode_plain_matches_pallas(b, hq, hkv, s, d, dtype, tol):
-    pytest.importorskip("jax")
+@functools.lru_cache(maxsize=None)
+def _pallas_decode(b, hq, hkv, s, d, dtype):
+    """The JAX package's Pallas decode kernel (interpret mode) on the
+    seeded inputs of a DECODE_CASES shape, as float32 numpy."""
     import jax.numpy as jnp
     from repro.kernels import ops as j_ops
 
     q, kc, vc, lens = _decode_inputs(s * 3 + b, b, hq, hkv, s, d)
-    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, kc, vc))
-    want = j_ops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_s=64,
-                                  interpret=True)
-    got = da.decode_attention_plain(tq, tk, tv, torch.as_tensor(lens))
+    jq, jk, jv = (_both(a, dtype)[0] for a in (q, kc, vc))
+    return np.asarray(j_ops.decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                             block_s=64, interpret=True),
+                      np.float32)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,hq,hkv,s,d", DECODE_CASES)
+def test_decode_plain_matches_pallas(b, hq, hkv, s, d, dtype, tol, n_split):
+    """The plain version in one range and under the kernel's split into
+    ``n_split`` ranges (partials merged as the combine kernel merges
+    them) against the Pallas kernel and the float64 reference."""
+    pytest.importorskip("jax")
+
+    q, kc, vc, lens = _decode_inputs(s * 3 + b, b, hq, hkv, s, d)
+    tq, tk, tv = (_both(a, dtype)[1] for a in (q, kc, vc))
+    want = _pallas_decode(b, hq, hkv, s, d, dtype)
+    got = da.decode_attention_plain(tq, tk, tv, torch.as_tensor(lens),
+                                    n_split=n_split)
     assert got.dtype == tq.dtype and tuple(got.shape) == (b, hq, d)
-    np.testing.assert_allclose(_f32(got), np.asarray(want, np.float32),
-                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(got), want, atol=tol, rtol=tol)
     if dtype == "float32":
         np.testing.assert_allclose(
             _f32(got), t_ref.decode_attention_reference(q, kc, vc, lens),
             atol=tol, rtol=tol)
+
+
+def _edge_lengths(b, s, split_len):
+    """0, 1, a split boundary - 1, at and + 1, S and past S, in turn."""
+    edges = [0, 1, split_len - 1, split_len, split_len + 1, s, s + 9]
+    return np.array([edges[i % len(edges)] for i in range(b)], np.int32)
+
+
+# (B, Hq, Hkv, S, D, n_split): boundaries inside S; S below one tile (the
+# second range starts past S); S not a whole number of tiles; ranges that
+# are wholly empty for every length short of them
+SPLIT_EDGE_CASES = [
+    (7, 8, 2, 257, 64, 3),
+    (5, 6, 2, 20, 32, 2),
+    (7, 4, 1, 130, 64, 2),
+    (7, 6, 3, 300, 32, 3),
+    (4, 4, 4, 96, 32, 7),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,hq,hkv,s,d,n_split", SPLIT_EDGE_CASES)
+def test_decode_plain_split_edges(b, hq, hkv, s, d, n_split, dtype, tol):
+    """Under a split plan, lengths at and around the range boundaries, 0
+    and past S give what one range gives and what the float64 reference
+    gives (a length of 0 gives 0, where the reference has no value), and
+    stale rows past a length never reach the output."""
+    q, kc, vc, _ = _decode_inputs(s + d, b, hq, hkv, s, d)
+    split_len = da.split_len_of(s, n_split)
+    lens = _edge_lengths(b, s, split_len)
+    tq, tk, tv = (_both(a, dtype)[1] for a in (q, kc, vc))
+    tl = torch.as_tensor(lens)
+    got = da.decode_attention_plain(tq, tk, tv, tl, n_split=n_split)
+    one = da.decode_attention_plain(tq, tk, tv, tl)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (b, hq, d)
+    np.testing.assert_allclose(_f32(got), _f32(one), atol=tol, rtol=tol)
+    empty = lens == 0
+    assert empty.any() and not _f32(got)[empty].any()
+    if dtype == "float32":
+        live = ~empty
+        want = t_ref.decode_attention_reference(q[live], kc[live], vc[live],
+                                                lens[live])
+        np.testing.assert_allclose(_f32(got)[live], want, atol=tol, rtol=tol)
+    poisoned_k, poisoned_v = tk.clone(), tv.clone()
+    for i, n in enumerate(lens):
+        poisoned_k[i, n:], poisoned_v[i, n:] = 7.7e4, -3e4
+    assert torch.equal(got, da.decode_attention_plain(
+        tq, poisoned_k, poisoned_v, tl, n_split=n_split))
+
+
+def test_split_plan_invariants():
+    """The ranges cover S in whole tiles, 1 <= n_split <= ceil(S /
+    MIN_SPLIT_LEN), the plan aims at WAVES waves of BLOCKS_PER_SM blocks,
+    and one range is taken once B * Hkv blocks fill the card."""
+    fill = da.WAVES * da.BLOCKS_PER_SM
+    for n_sm in (1, 8, 114, 132):
+        for b in (1, 2, 8, 33, 64):
+            for hkv in (1, 2, 8, 32):
+                for s in (1, 20, 31, 32, 96, 130, 257, 1024, 5000, 8192,
+                          32768):
+                    n_split, split_len = da.split_plan(b, hkv, s, n_sm)
+                    cap = -(-s // da.MIN_SPLIT_LEN)
+                    assert 1 <= n_split <= cap
+                    assert split_len % da.TILE == 0 and split_len >= da.TILE
+                    assert n_split * split_len >= s
+                    assert split_len == da.split_len_of(s, n_split)
+                    if b * hkv >= fill * n_sm:
+                        assert n_split == 1
+                    elif n_split < cap:
+                        assert n_split * b * hkv >= fill * n_sm
+    assert da.split_plan(8, 8, 8192, 132)[0] > 1
 
 
 def test_plain_edge_cases_follow_the_kernels():
@@ -263,30 +351,60 @@ def test_cuda_flash_float32_is_unchanged(cuda_device, b, hq, hkv, lq, lk, d,
     assert digest == FLASH_F32_DIGESTS[(b, hq, hkv, lq, lk, d, causal)]
 
 
+# the card's decode shapes: the CPU cases, the engine's width at S 1024 and
+# S 8192 with seeded lengths, then "edges" lengths (0, 1, a split boundary
+# - 1, at and + 1, S, past S) under the kernel's own split plan: at the
+# engine's width, at S 8192, S below one tile, S not a whole number of
+# tiles; and (B = None) S 8192 with B * Hkv filling the card, one range
+DECODE_CUDA_CASES = [c + (None,) for c in DECODE_CASES] + [
+    (8, 24, 8, 1024, 128, None), (8, 24, 8, 8192, 128, None),
+    (8, 24, 8, 1024, 128, "edges"), (7, 8, 2, 8192, 64, "edges"),
+    (5, 6, 2, 20, 32, "edges"), (6, 4, 1, 300, 64, "edges"),
+    (None, 32, 32, 8192, 32, "edges")]
+
+
+def _cuda_decode_inputs(device, b, hq, hkv, s, d, lengths):
+    """Seeded float32 decode inputs on ``device`` and the kernel's split
+    plan; B = None fills the card (one range)."""
+    n_sm = da.sm_count(device)
+    fill = b is None
+    if fill:
+        b = -(-da.WAVES * da.BLOCKS_PER_SM * n_sm // hkv)
+    q, kc, vc, lens = _decode_inputs(s + b, b, hq, hkv, s, d)
+    n_split, split_len = da.split_plan(b, hkv, s, n_sm)
+    assert n_split == 1 or not fill
+    if lengths == "edges":
+        lens = _edge_lengths(b, s, split_len)
+    return (torch.as_tensor(q, device=device),
+            torch.as_tensor(kc, device=device),
+            torch.as_tensor(vc, device=device),
+            torch.as_tensor(lens, device=device), n_split)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,kv_dtype,tol",
                          [("float32", "bfloat16", 2e-5),
                           ("bfloat16", "float32", 2e-2)])
-@pytest.mark.parametrize("b,hq,hkv,s,d",
-                         DECODE_CASES + [(8, 24, 8, 1024, 128)])
-def test_cuda_decode_mixed_types(cuda_device, b, hq, hkv, s, d, q_dtype,
-                                 kv_dtype, tol):
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", DECODE_CUDA_CASES)
+def test_cuda_decode_mixed_types(cuda_device, b, hq, hkv, s, d, lengths,
+                                 q_dtype, kv_dtype, tol):
     """q and caches of different types (float32 weights over a bfloat16
     cache, bfloat16 weights over a float32 one): q is not rounded to the
     cache's type, the output is in q's type, and it is within the
     tolerance of q's type of the plain version, which upcasts each operand
-    on its own."""
-    q, kc, vc, lens = _decode_inputs(s + b, b, hq, hkv, s, d)
-    q = torch.as_tensor(q, device=cuda_device).to(getattr(torch, q_dtype))
-    kc, vc = (torch.as_tensor(a, device=cuda_device).to(getattr(torch,
-                                                                 kv_dtype))
-              for a in (kc, vc))
-    lens = torch.as_tensor(lens, device=cuda_device)
+    on its own, in one range and under the kernel's split plan."""
+    q, kc, vc, lens, n_split = _cuda_decode_inputs(cuda_device, b, hq, hkv,
+                                                   s, d, lengths)
+    q = q.to(getattr(torch, q_dtype))
+    kc, vc = (a.to(getattr(torch, kv_dtype)) for a in (kc, vc))
     got = ops.decode_attention(q, kc, vc, lens)
     want = da.decode_attention_plain(q, kc, vc, lens)
+    split = da.decode_attention_plain(q, kc, vc, lens, n_split=n_split)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), split.float(), atol=tol,
+                               rtol=tol)
     if q_dtype == "float32":
         # what a kernel that rounded q to bfloat16 would give
         rounded = da.decode_attention_plain(q.bfloat16().float(), kc, vc,
@@ -296,17 +414,20 @@ def test_cuda_decode_mixed_types(cuda_device, b, hq, hkv, s, d, q_dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("b,hq,hkv,s,d",
-                         DECODE_CASES + [(8, 24, 8, 1024, 128)])
-def test_cuda_decode_matches_plain(cuda_device, b, hq, hkv, s, d, dtype,
-                                   tol):
-    q, kc, vc, lens = _decode_inputs(s + b, b, hq, hkv, s, d)
-    q, kc, vc = (torch.as_tensor(a, device=cuda_device)
-                 .to(getattr(torch, dtype)) for a in (q, kc, vc))
-    lens = torch.as_tensor(lens, device=cuda_device)
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", DECODE_CUDA_CASES)
+def test_cuda_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
+                                   dtype, tol):
+    q, kc, vc, lens, n_split = _cuda_decode_inputs(cuda_device, b, hq, hkv,
+                                                   s, d, lengths)
+    q, kc, vc = (a.to(getattr(torch, dtype)) for a in (q, kc, vc))
     before = ops.launch_counts()["decode_attention"]
     got = ops.decode_attention(q, kc, vc, lens)
     want = da.decode_attention_plain(q, kc, vc, lens)
+    split = da.decode_attention_plain(q, kc, vc, lens, n_split=n_split)
     torch.cuda.synchronize()
     assert ops.launch_counts()["decode_attention"] == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), split.float(), atol=tol,
+                               rtol=tol)
+    empty = lens == 0
+    assert not got[empty].any()
