@@ -11,11 +11,18 @@ Phases — any failure raises and the script exits non-zero:
 2. parity  each kernel against its plain torch version on the card. The
            mapping-eval kernels at the search path's shapes (llama3.2-3b
            graph: rows 4, M 80, T 320; B = 3; P in {64, 2048}; both grid
-           orders): bitwise, and both against the float64 numpy reference
-           at 1e-5 relative. The attention kernels at the shapes of
-           tests/test_kernels.py and at llama3.2-3b's (decode B 8, Hq 24,
-           Hkv 8, D 128, S 1024, seeded lengths; flash B 2, L 512 and
-           2048 causal, and Lq 100 < Lk 512) and, for flash, at every D
+           orders; the shared-row route and the global-row route): bitwise,
+           and both against the float64 numpy reference at 1e-5 relative;
+           then at edge shapes on every route the plan allows (T not a
+           multiple of 4 or of the staging tile, W > 8, T = W = C = 1, a
+           B * P that no block divides, the longest T the shared route
+           takes and one step past it): bitwise; and with a chip id and a
+           sched index out of range: NaN at exactly that step, the plain
+           version's bits before it, both routes alike. The attention
+           kernels at the shapes of tests/test_kernels.py and at
+           llama3.2-3b's (decode B 8, Hq 24, Hkv 8, D 128, S 1024, seeded
+           lengths; flash B 2, L 512 and 2048 causal, and Lq 100 < Lk
+           512) and, for flash, at every D
            in {32, 64, 96, 128}, causal and bidirectional, ragged L,
            L < 16 and Hq / Hkv of 1, 3 and 8: 2e-5 in float32, 2e-2 in
            bfloat16 (the bfloat16 tensor-core kernel also within 2e-2 of
@@ -35,8 +42,9 @@ Phases — any failure raises and the script exits non-zero:
 3. main    the search path: ``explore`` on the canonical llama3.2-3b
            prefill scenario with the default (fused) backend and then with
            ``kernel``: the same best score, each kernel launched, no plain
-           path dispatched, the best mapping re-priced on the card equal to
-           the numpy oracle at 1e-4; then the golden goodput scenario
+           path dispatched, every launch on the shared-row route, the best
+           mapping re-priced on the card equal to the numpy oracle at 1e-4;
+           then the golden goodput scenario
            (orca, joint co-search, the fold on the card) against
            tests/goldens/search_goldens.json;
 4. serve   the serving path at the full width of llama3.2-3b (28 layers,
@@ -77,7 +85,12 @@ Phases — any failure raises and the script exits non-zero:
            could take for the same bytes (3.35 TB/s) or operations
            (67 TFLOP/s float32, 989 TFLOP/s bfloat16): the mapping-eval
            kernels at P in {64, 512, 2048, 4096} (with one (b, p) chain
-           alone), decode at S in {1024, 8192} (with its split plan, its
+           alone), the global-row and the shared-row route in turns (global,
+           shared, shared, global) in both grid orders, each route's device
+           time per call from ``torch.profiler`` and ns per step, the
+           wrapper's host time per call, the plan (pairs per block, tile,
+           shared bytes) and the blocks per SM of the occupancy calculator;
+           decode at S in {1024, 8192} (with its split plan, its
            device time per call from ``torch.profiler`` -- split and
            combine kernels summed -- and its host time per call over
            back-to-back calls, and the same two for the library call),
@@ -96,6 +109,7 @@ one ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -180,6 +194,14 @@ FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                FLASH_BF16_MAIN]
 PARITY_POPS = (64, 2048)
 TIME_POPS = (64, 512, 2048, 4096)
+# mapping-eval edge shapes (B, P, T, W, C): T not a multiple of 4 (4-byte
+# copies) nor of the tile, a ragged last tile with 16-byte copies, W > 8,
+# T = W = C = 1, and a B * P that no block size divides; then the longest T
+# the shared route takes and one step past it (global), at B 8, P 2
+EDGE_SHAPES = [(2, 5, 322, 3, 4), (3, 9, 324, 8, 16), (2, 3, 65, 11, 3),
+               (1, 1, 1, 1, 1), (3, 133, 40, 4, 5)]
+CAP_SHAPE = (8, 2, 1, 2)               # B, P, W, C
+BAD_CHIP_STEP, BAD_SCHED_STEP = 200, 77
 
 
 def emit(obj) -> None:
@@ -260,17 +282,52 @@ def bound(name: str, inp: dict) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def run_kernel(name: str, inp: dict, order: str, plain: bool = False):
+def run_kernel(name: str, inp: dict, order: str, plain: bool = False,
+               route: str | None = None):
     from repro_torch.kernels import mapping_eval as me
 
     a = (inp["chip"], inp["ppos"], inp["n_chips"])
     if name == "mapping_eval":
         tp = inp["gathered"]
         return (me.mapping_eval_plain(tp, *a) if plain
-                else me.mapping_eval_cuda(tp, *a, order))
+                else me.mapping_eval_cuda(tp, *a, order, route))
     tp, sched = inp["t_proc"], inp["sched_idx"]
     return (me.mapping_eval_fused_plain(tp, sched, *a) if plain
-            else me.mapping_eval_fused_cuda(tp, sched, *a, order))
+            else me.mapping_eval_fused_cuda(tp, sched, *a, order, route))
+
+
+def edge_inputs(n_batch: int, pop: int, t_len: int, width: int,
+                n_chips: int, seed: int, device) -> dict:
+    """Seeded random mapping-eval inputs on the card: cost rows of L = T,
+    a permutation sched per individual, random chips, and up to W random
+    earlier predecessors per step (the rest the sentinel T)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t_proc = rng.uniform(0.1, 1.0, (n_batch, pop, t_len)).astype(np.float32)
+    sched = rng.permuted(np.tile(np.arange(t_len), (pop, 1)), axis=1)
+    chip = rng.integers(0, n_chips, (pop, t_len))
+    steps = np.arange(t_len)[None, :, None]
+    pos = np.floor(rng.random((pop, t_len, width)) * steps)
+    live = np.arange(width)[None, None, :] < rng.integers(
+        0, width + 1, (pop, t_len, 1))
+    ppos = np.where(live & (steps > 0), pos, t_len)
+
+    def i32(x):
+        return torch.as_tensor(x.astype(np.int32), device=device)
+
+    inp = {"t_proc": torch.as_tensor(t_proc, device=device),
+           "sched_idx": i32(sched), "chip": i32(chip), "ppos": i32(ppos),
+           "n_chips": n_chips}
+    return with_gathered(inp)
+
+
+def route_of(name: str, inp: dict) -> str:
+    from repro_torch.kernels import mapping_eval as me
+
+    return me.kernel_plan(inp["t_proc"], inp["chip"], inp["ppos"],
+                          inp["n_chips"], name == "mapping_eval_fused").route
 
 
 def with_gathered(inp: dict) -> dict:
@@ -476,36 +533,116 @@ def phase_build() -> dict:
     return rec
 
 
+def _bitwise_both(inp: dict, label: str) -> dict:
+    """Each mapping-eval kernel on each route its plan allows (the global
+    route always) and each grid order against its plain version, bitwise.
+    Returns the outputs by (kernel, route, order) and the largest error."""
+    import torch
+
+    from repro_torch.kernels import mapping_eval as me
+
+    plain = {name: run_kernel(name, inp, "batch_major", plain=True)
+             for name in KERNELS}
+    outs, errs = {}, {name: 0.0 for name in KERNELS}
+    for name in KERNELS:
+        routes = ("shared", "global") if route_of(name, inp) == "shared" \
+            else ("global",)
+        for route, order in itertools.product(routes, me.GRID_ORDERS):
+            end, free = run_kernel(name, inp, order, route=route)
+            torch.cuda.synchronize()
+            p_end, p_free = plain[name]
+            err = max(float((end - p_end).abs().max()),
+                      float((free - p_free).abs().max()))
+            errs[name] = max(errs[name], err)
+            check(torch.equal(end, p_end) and torch.equal(free, p_free),
+                  f"{name} ({route}, {order}, {label}) differs from its "
+                  f"plain version: max abs err {err}")
+            outs[(name, route, order)] = (end, free)
+    return outs, errs
+
+
+def _parity_edges(device) -> dict:
+    """The edge shapes, the shared route's cap and one step past it, and
+    out-of-range indices."""
+    import torch
+
+    from repro_torch.kernels import mapping_eval as me
+
+    errs = {name: 0.0 for name in KERNELS}
+    cases = [(shape, None) for shape in EDGE_SHAPES]
+    n_batch, pop, width, n_chips = CAP_SHAPE
+    limits = me.device_limits(device)
+    for name in KERNELS:
+        fused = name == "mapping_eval_fused"
+        lo, hi = 1, 1 << 20      # the longest shared-route T (L = T)
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            ok = me.row_plan(n_batch, 1, mid, width, n_chips, mid, fused,
+                             *limits).route == "shared"
+            lo, hi = (mid, hi) if ok else (lo, mid - 1)
+        cases += [((n_batch, pop, lo, width, n_chips), name),
+                  ((n_batch, pop, lo + 1, width, n_chips), name)]
+    for k, (shape, only) in enumerate(cases):
+        inp = edge_inputs(*shape, seed=1000 + k, device=device)
+        routes = {name: route_of(name, inp) for name in KERNELS}
+        _, e = _bitwise_both(inp, f"edge {shape}")
+        for name in KERNELS:
+            errs[name] = max(errs[name], e[name])
+        emit({"phase": "parity", "edge": list(shape), "cap_of": only,
+              "routes": routes, "bitwise": True})
+    # a chip id and a sched index out of range, at the search's widths
+    inp = edge_inputs(3, 6, 320, 8, 16, seed=7, device=device)
+    bad_chip, bad_sched = inp["chip"].clone(), inp["sched_idx"].clone()
+    bad_chip[0, BAD_CHIP_STEP] = 16
+    bad_sched[0, BAD_SCHED_STEP] = 320
+    bad_sched[-1, BAD_SCHED_STEP] = -1
+    # the unfused kernel keeps the valid gathered costs: its chip is bad
+    bad = dict(inp, chip=bad_chip, sched_idx=bad_sched)
+    for name in KERNELS:
+        first = BAD_SCHED_STEP if name == "mapping_eval_fused" \
+            else BAD_CHIP_STEP
+        p_end, _ = run_kernel(name, inp, "batch_major", plain=True)
+        got = {r: run_kernel(name, bad, "batch_major", route=r)[0]
+               for r in ("shared", "global")}
+        torch.cuda.synchronize()
+        e_s, e_g = got["shared"], got["global"]
+        check(torch.equal(e_s.isnan(), e_g.isnan())
+              and torch.equal(e_s.nan_to_num(), e_g.nan_to_num()),
+              f"{name}: the routes disagree on out-of-range input")
+        check(bool(e_s[:, 0, BAD_CHIP_STEP].isnan().all())
+              and bool(e_s[:, 0, first].isnan().all())
+              and (first == BAD_CHIP_STEP
+                   or bool(e_s[:, -1, first].isnan().all())),
+              f"{name}: no NaN at an out-of-range step")
+        check(torch.equal(e_s[:, 0, :first], p_end[:, 0, :first])
+              and not e_s[:, 1:-1].isnan().any()
+              and torch.equal(e_s[:, 1:-1], p_end[:, 1:-1]),
+              f"{name}: out-of-range input changed a valid step")
+        emit({"phase": "parity", "out_of_range": name, "nan_steps":
+              sorted({BAD_CHIP_STEP, first}), "routes_agree": True})
+    return errs
+
+
 def phase_parity(ev) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import mapping_eval as me
     from repro_torch.kernels import ref
 
     errs = {name: 0.0 for name in KERNELS}
     for pop in PARITY_POPS:
         inp = with_gathered(kernel_inputs(ev, pop, seed=pop))
         n_batch, _, t_len = inp["gathered"].shape
-        plain = {name: run_kernel(name, inp, "batch_major", plain=True)
-                 for name in KERNELS}
-        outs = {}
-        for order in me.GRID_ORDERS:
-            for name in KERNELS:
-                end, free = run_kernel(name, inp, order)
-                torch.cuda.synchronize()
-                p_end, p_free = plain[name]
-                err = max(float((end - p_end).abs().max()),
-                          float((free - p_free).abs().max()))
-                errs[name] = max(errs[name], err)
-                check(torch.equal(end, p_end) and torch.equal(free, p_free),
-                      f"{name} ({order}, P={pop}) differs from its plain "
-                      f"version: max abs err {err}")
-                outs[(name, order)] = (end, free)
+        routes = {name: route_of(name, inp) for name in KERNELS}
+        check(set(routes.values()) == {"shared"},
+              f"the search's shape takes {routes}")
+        outs, e = _bitwise_both(inp, f"P={pop}")
+        for name in KERNELS:
+            errs[name] = max(errs[name], e[name])
         ref_outs = list(outs.values())
         check(all(torch.equal(o[0], ref_outs[0][0])
                   and torch.equal(o[1], ref_outs[0][1]) for o in ref_outs),
-              f"kernels or grid orders disagree at P={pop}")
+              f"kernels, routes or grid orders disagree at P={pop}")
         # float64 numpy reference on a strided subset of individuals
         sel = np.arange(0, pop, max(1, pop // 32))
         sel_t = torch.as_tensor(sel, device=inp["chip"].device)
@@ -519,15 +656,18 @@ def phase_parity(ev) -> dict:
             host["gathered"], host["chip"], host["ppos"], inp["n_chips"])
         np.testing.assert_array_equal(e_end, u_end)
         for name in KERNELS:
-            end, free = outs[(name, "batch_major")]
+            end, free = outs[(name, "shared", "batch_major")]
             np.testing.assert_allclose(
                 end.index_select(1, sel_t).cpu().numpy(), e_end, rtol=1e-5)
             np.testing.assert_allclose(
                 free.index_select(1, sel_t).cpu().numpy(), e_free, rtol=1e-5)
         emit({"phase": "parity", "B": n_batch, "P": pop, "T": t_len,
               "W": int(inp["ppos"].shape[-1]), "C": inp["n_chips"],
-              "L": int(inp["t_proc"].shape[-1]), "bitwise": True,
+              "L": int(inp["t_proc"].shape[-1]), "routes": routes,
+              "bitwise": True, "both_routes_bitwise": True,
               "ref_rtol": 1e-5, "ref_individuals": int(sel.size)})
+    for name, e in _parity_edges(inp["chip"].device).items():
+        errs[name] = max(errs[name], e)
     return errs
 
 def attn_kernel(name: str, dtype: str) -> str:
@@ -694,7 +834,14 @@ def _explore_once(scenario, backend):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = timing.timing_backend_stats()          # read just after
+    stats["routes"] = _me_routes()
     return res, wall, stats
+
+
+def _me_routes() -> dict:
+    from repro_torch.kernels import mapping_eval as me
+
+    return me.route_counts()
 
 
 def _oracle_agreement(scenario, res, device) -> float:
@@ -761,9 +908,13 @@ def _golden_goodput(device) -> dict:
 
 
 def _path_ok(stats: dict, kernel: str) -> None:
-    """Only the kernel's CUDA path (and the oracle's final pricing) ran."""
+    """Only the kernel's CUDA path (and the oracle's final pricing) ran,
+    every launch on the shared-row route."""
     disp = stats["dispatches"]
     check(stats["launches"][kernel] > 0, f"{kernel} was never launched")
+    routes = stats.get("routes") or _me_routes()
+    check(routes[f"{kernel}:shared"] == stats["launches"][kernel],
+          f"{kernel} left the shared-row route: {routes}")
     check(set(disp) <= {f"{kernel}:cuda", "oracle"},
           f"unexpected dispatch paths {sorted(disp)}")
 
@@ -785,6 +936,9 @@ def phase_main(scenario, device) -> dict:
         calls = stats["dispatches"][f"{kernel}:cuda"]
         runs[label] = {"best_score": score, "wall_s": wall,
                        "launches": stats["launches"][kernel],
+                       "launches_by_route": {
+                           r: stats["routes"][f"{kernel}:{r}"]
+                           for r in ("shared", "global")},
                        "evaluator_calls": calls,
                        "launches_per_generation":
                            stats["launches"][kernel] / calls,
@@ -812,7 +966,8 @@ def phase_main(scenario, device) -> dict:
                   and abs(have - want) <= golden["rtol"] * abs(want),
                   f"golden {key}: {have} vs {want}")
     emit({"phase": "golden", "case": "search_goodput_stream", "values": got,
-          "rtol": golden["rtol"], "launches": stats["launches"]})
+          "rtol": golden["rtol"], "launches": stats["launches"],
+          "launches_by_route": _me_routes()})
     return runs
 
 
@@ -1304,6 +1459,33 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _in_turns(fns: dict, reps: int) -> dict:
+    """CUDA-event ms per call of each of two callables, timed in turns
+    (a, b, b, a) and averaged."""
+    a, b = fns
+    order = (a, b, b, a)
+    got = {k: [] for k in fns}
+    for k in order:
+        got[k].append(_time_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in got.items()}
+
+
+def _mapping_device_ms(name: str, inp: dict, order: str, route: str,
+                       calls: int = 20) -> float | None:
+    """Device time of one mapping-eval call from ``torch.profiler``."""
+    def run():
+        for _ in range(calls):
+            run_kernel(name, inp, order, route=route)
+
+    run()
+    for _ in range(5):   # the profiler now and then records nothing
+        _, kern = _profiled(run)
+        mine = [e for e in kern if "mapping_eval" in e.key]
+        if mine:
+            return _device_ms_per_call(mine, calls)
+    return None
+
+
 def phase_times(ev, runs: dict) -> dict:
     from repro_torch.kernels import mapping_eval as me
 
@@ -1314,19 +1496,55 @@ def phase_times(ev, runs: dict) -> dict:
                                  else v[:1].contiguous())
                              if hasattr(v, "shape") else v
                              for k, v in inp.items() if k != "gathered"})
+        t_len = int(inp["chip"].shape[1])
         for name in KERNELS:
-            by_order = {o: _time_ms(lambda o=o: run_kernel(name, inp, o), 20)
-                        for o in me.GRID_ORDERS}
-            order = min(by_order, key=by_order.get)
+            fused = name == "mapping_eval_fused"
+            routes = ("global", "shared")     # timed in turns: g, s, s, g
+            by_route = {r: {} for r in routes}
+            for order in me.GRID_ORDERS:
+                got = _in_turns({r: lambda o=order, r=r: run_kernel(
+                    name, inp, o, route=r) for r in routes}, 20)
+                for r in routes:
+                    by_route[r][order] = got[r]
+            best = {r: min(v, key=v.get) for r, v in by_route.items()}
+            ms = {r: by_route[r][best[r]] for r in routes}
+            dev = {r: _mapping_device_ms(name, inp, best[r], r)
+                   for r in routes}
+            chain = _in_turns({r: lambda r=r: run_kernel(
+                name, one, "batch_major", route=r) for r in routes}, 20)
+            chain_dev = {r: _mapping_device_ms(name, one, "batch_major", r)
+                         for r in routes}
+            plan = me.kernel_plan(inp["t_proc"], inp["chip"], inp["ppos"],
+                                  inp["n_chips"], fused)
+            order = best["shared"]
+
+            def per_step(x):
+                return None if x is None else 1e6 * x / t_len
+
             rec = {
                 "kernel": name, "B": int(inp["t_proc"].shape[0]), "P": pop,
-                "T": int(inp["chip"].shape[1]),
-                "kernel_ms": by_order[order], "grid_order": order,
-                "kernel_ms_by_order": by_order,
+                "T": t_len, "route": plan.route, "plan": plan._asdict(),
+                "blocks_per_sm_occupancy": me.blocks_per_sm(
+                    plan, fused, inp["t_proc"].device),
+                "kernel_ms": ms["shared"], "grid_order": order,
+                "kernel_ms_by_order": by_route["shared"],
+                "device_ms": dev["shared"],
+                "ns_per_step": per_step(dev["shared"]),
+                "host_us_per_call": _host_us_per_call(
+                    lambda: run_kernel(name, inp, order)),
+                "global_ms": ms["global"],
+                "global_ms_by_order": by_route["global"],
+                "global_device_ms": dev["global"],
+                "global_ns_per_step": per_step(dev["global"]),
+                "single_pair_chain_ms": chain["shared"],
+                "single_pair_device_ms": chain_dev["shared"],
+                "single_pair_ns_per_step": per_step(chain_dev["shared"]),
+                "global_single_pair_chain_ms": chain["global"],
+                "global_single_pair_device_ms": chain_dev["global"],
+                "global_single_pair_ns_per_step":
+                    per_step(chain_dev["global"]),
                 "plain_ms": _time_ms(
                     lambda: run_kernel(name, inp, order, plain=True), 3, 1),
-                "single_pair_chain_ms": _time_ms(
-                    lambda: run_kernel(name, one, "batch_major"), 20),
                 "library_ms": None,
             }
             rec["bound_ms"], rec["bound_by"] = bound(name, inp)

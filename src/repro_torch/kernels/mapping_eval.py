@@ -11,23 +11,34 @@ sequential recurrence over the mapping's scheduled op order:
 ``ppos`` is the padded predecessor-position layout the structural pass
 emits; the sentinel T reads as 0 (the oracle's ``max(..., 0)``).
 
-``mapping_eval`` (kernel ``mapping_eval_kernel`` in
+``mapping_eval`` (kernel ``mapping_eval_kernel<false>`` in
 ``csrc/mapping_eval.cu``) replaces the TPU kernel
 ``repro/kernels/mapping_eval.py::mapping_eval`` (body
 ``_mapping_eval_kernel``): it takes the scheduled ``t_proc`` (B, P, T).
-``mapping_eval_fused`` (kernel ``mapping_eval_fused_kernel``) replaces
+``mapping_eval_fused`` (kernel ``mapping_eval_kernel<true>``) replaces
 ``repro/kernels/mapping_eval.py::mapping_eval_fused`` (body
 ``_mapping_eval_fused_kernel``): it also runs pass A, gathering step t's
 processing time as ``t_proc[sched_idx[t]]`` from the un-gathered (B, P, L)
 cost rows, so the (B, P, T) scheduled tensor is never written.
 
-What bounds them on an H100: each (b, p) pair is a T-step chain of
-dependent loads, so a pair's time is T load latencies, not bytes; the
-bytes (inputs read once, outputs written once) bound the whole call at
-3.35 TB/s only once enough pairs are in flight to hide that chain. This
-first design runs one thread per pair (6,144 threads at B = 3, P = 2048 —
-too few to fill 132 SMs) and is latency-bound; shared-memory rows, a warp
-per pair and overlapped loads are left for later revisions.
+On the card each kernel has two routes, chosen by shape on the host
+(:func:`row_plan`, which reads nothing back from the device). The
+**shared** route (one templated body whose switch is pass A) is the main
+path: a block serves a few
+individuals and all B batches of each, keeps every pair's end row and
+chip-free times in shared memory for the whole chain, and has a producer
+warp stage the index tiles (and the costs, gathered one tile ahead)
+through a ``cp.async`` ring and write the finished rows behind the chain.
+What bounds it on an H100 is one chain's latency (T dependent
+shared-memory steps) at small P, where every pair is in flight at once,
+and instruction issue and shared-memory bandwidth at large P; the bytes
+(inputs read once, outputs written once, at 3.35 TB/s) are far below
+either. The **global** route (``mapping_eval_global_kernel``,
+``mapping_eval_fused_global_kernel``) is the first design, one thread per
+pair reading its predecessors back from its global output row; it serves
+chains whose end and cost rows do not fit in a block's shared memory
+(T + L past about 58,000 / B on an H100). Both routes count as one
+launch of their kernel.
 
 Each kernel keeps beside it: its plain torch version (the CPU path and the
 card's parity partner, bitwise equal by construction: one exact max chain
@@ -42,16 +53,30 @@ import ctypes
 import functools
 import os
 import threading
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
 GRID_ORDERS = ("batch_major", "pop_major")
+ROUTES = ("shared", "global")
+# the shared route's plan: staging tiles tried (steps per tile, largest
+# first), producer warps for each chain warp, the threads a block may
+# have, and the shared memory the runtime keeps per resident block on
+# sm_90
+TILES = (32, 16, 8, 4)
+LANES = 8          # predecessor lanes a chain step reads as two int4s
+PRODUCERS = 2      # producer warps for each chain warp
+RAW_STAGES = 3     # raw index tiles in flight (kRawStages in the source)
+MAX_THREADS = 512
+RESERVED_SMEM = 1024
 _GRID_ORDER_ENV = "REPRO_FUSED_GRID_ORDER"
 _SOURCE = "mapping_eval.cu"
 
 LAUNCHES = {"mapping_eval": 0, "mapping_eval_fused": 0}
+# the same launches by route ("<kernel>:shared" / "<kernel>:global")
+ROUTE_LAUNCHES = {f"{k}:{r}": 0 for k in LAUNCHES for r in ROUTES}
 _LAUNCH_LOCK = threading.Lock()
 _AUTOTUNE_CACHE: dict[tuple, str] = {}
 
@@ -61,10 +86,17 @@ def launch_counts() -> dict[str, int]:
         return dict(LAUNCHES)
 
 
+def route_counts() -> dict[str, int]:
+    """The launches since the last reset, split by route."""
+    with _LAUNCH_LOCK:
+        return dict(ROUTE_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     with _LAUNCH_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, ROUTE_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
 def default_grid_order() -> str:
@@ -127,6 +159,142 @@ def mapping_eval_fused_plain(t_proc, sched_idx, chip, ppos, n_chips: int):
 
 
 # --------------------------------------------------------------------------
+# The host plan
+# --------------------------------------------------------------------------
+
+
+class RowPlan(NamedTuple):
+    """How one call runs: ``route`` ("shared" or "global"), individuals and
+    (b, p) pairs per block, threads per block and how many of them are
+    producer warps, steps per staged tile, the dynamic shared bytes,
+    blocks, and resident blocks per SM by shared memory and threads (the
+    card's occupancy calculator may say fewer)."""
+    route: str
+    ind_per_block: int
+    pairs_per_block: int
+    threads: int
+    producer_warps: int
+    tile: int
+    smem_bytes: int
+    blocks: int
+    blocks_per_sm: int
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def smem_bytes(n_batch: int, t_len: int, width: int, n_chips: int,
+               n_flat: int, ind: int, tile: int, fused: bool) -> int:
+    """Dynamic shared memory of one shared-route block (``layout_of`` in
+    ``csrc/mapping_eval.cu``, which refuses a launch whose bytes differ),
+    one column per pair: the end rows with a zero and a -inf row, the
+    chip-free times, the cost rows (L = ``n_flat``) with a NaN row; then
+    RAW_STAGES stages of raw chip, ppos (and sched) tiles, two of placed
+    offsets; the pairs' row table."""
+    pairs = ind * n_batch
+    stride = pairs if ind == 1 else -(-pairs // 32) * 32
+    out_width = _up4(max(width, LANES) + 2)
+    words = (_up4((t_len + 2) * stride) + _up4(n_chips * stride)
+             + _up4((n_flat + 1) * stride)
+             + RAW_STAGES * ind * (tile + 4) * (2 if fused else 1)
+             + RAW_STAGES * ind * (tile * width + 4)
+             + 2 * ind * (tile * out_width + 4) + _up4(2 * pairs))
+    return 4 * words
+
+
+def _producer_warps(pairs: int) -> int:
+    return PRODUCERS * -(-pairs // 32)
+
+
+def _threads(pairs: int) -> int:
+    """Chain threads in whole warps, and the producer warps."""
+    return 32 * (-(-pairs // 32) + _producer_warps(pairs))
+
+
+@functools.lru_cache(maxsize=1024)
+def row_plan(n_batch: int, pop: int, t_len: int, width: int, n_chips: int,
+             n_flat: int, fused: bool, n_sm: int, smem_per_block: int,
+             smem_per_sm: int) -> RowPlan:
+    """The layout of one call on a card of ``n_sm`` SMs with
+    ``smem_per_block`` bytes of shared memory a block may opt in to and
+    ``smem_per_sm`` per SM. For each staging tile (largest first) it takes
+    the most individuals per block that fit, capped at one block per SM
+    for the population (P / n_sm individuals), and keeps the tile that
+    needs the fewest waves of blocks. Where not even one individual's B
+    rows fit, the route is "global": one thread per pair, 64 a block.
+    Plans are cached by their arguments: a launch looks its plan up."""
+    best = None
+    for tile in TILES:
+        if tile > max(4, _up4(t_len)) and tile != TILES[-1]:
+            continue
+
+        def fits(ind, tile=tile):
+            return (smem_bytes(n_batch, t_len, width, n_chips, n_flat, ind,
+                               tile, fused) <= smem_per_block
+                    and _threads(ind * n_batch) <= MAX_THREADS)
+
+        if not fits(1):
+            continue
+        lo, hi = 1, pop
+        while lo < hi:                      # the most individuals that fit
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+        ind = min(lo, max(1, -(-pop // n_sm)))
+        nbytes = smem_bytes(n_batch, t_len, width, n_chips, n_flat, ind,
+                            tile, fused)
+        threads = _threads(ind * n_batch)
+        per_sm = max(1, min(smem_per_sm // (nbytes + RESERVED_SMEM),
+                            2048 // threads, 32))
+        blocks = -(-pop // ind)
+        waves = -(-blocks // (n_sm * per_sm))
+        plan = RowPlan("shared", ind, ind * n_batch, threads,
+                       _producer_warps(ind * n_batch), tile, nbytes, blocks,
+                       per_sm)
+        if best is None or waves < best[0]:
+            best = (waves, plan)
+    if best is not None:
+        return best[1]
+    return RowPlan("global", 0, 64, 64, 0, 0, 0, -(-n_batch * pop // 64), 0)
+
+
+@functools.cache
+def _device_limits(index: int) -> tuple[int, int, int]:
+    out = (ctypes.c_int * 3)()
+    rc = _lib().mapping_eval_device_limits(index, out)
+    _raise_on(rc, "mapping_eval_device_limits")
+    return tuple(out)
+
+
+def device_limits(device) -> tuple[int, int, int]:
+    """(SM count, shared bytes a block may opt in to, shared bytes per SM)
+    of a CUDA device, read once per device."""
+    dev = torch.device(device)
+    return _device_limits(torch.cuda.current_device() if dev.index is None
+                          else dev.index)
+
+
+def kernel_plan(t_proc, chip, ppos, n_chips: int, fused: bool) -> RowPlan:
+    """The plan the kernel takes for these CUDA operands."""
+    n_batch, _, n_flat = t_proc.shape
+    pop, t_len = chip.shape
+    return row_plan(n_batch, pop, t_len, ppos.shape[-1], n_chips, n_flat,
+                    fused, *device_limits(t_proc.device))
+
+
+def blocks_per_sm(plan: RowPlan, fused: bool, device) -> int:
+    """Resident blocks per SM of a shared-route plan, from the card's
+    occupancy calculator."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _lib().mapping_eval_blocks_per_sm(int(fused), plan.threads,
+                                               plan.smem_bytes,
+                                               ctypes.byref(out))
+    _raise_on(rc, "mapping_eval_blocks_per_sm")
+    return out.value
+
+
+# --------------------------------------------------------------------------
 # CUDA launchers
 # --------------------------------------------------------------------------
 
@@ -141,6 +309,14 @@ def _lib() -> ctypes.CDLL:
     lib.mapping_eval_launch.restype = ci
     lib.mapping_eval_fused_launch.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.mapping_eval_fused_launch.restype = ci
+    lib.mapping_eval_rows_launch.argtypes = ([ci] + [vp] * 6 + [ci] * 10
+                                             + [ctypes.c_longlong, vp])
+    lib.mapping_eval_rows_launch.restype = ci
+    lib.mapping_eval_device_limits.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.mapping_eval_device_limits.restype = ci
+    lib.mapping_eval_blocks_per_sm.argtypes = [ci, ci, ctypes.c_longlong,
+                                               ctypes.POINTER(ci)]
+    lib.mapping_eval_blocks_per_sm.restype = ci
     lib.mapping_eval_error_string.argtypes = [ci]
     lib.mapping_eval_error_string.restype = ctypes.c_char_p
     return lib
@@ -167,9 +343,10 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _count(name: str) -> None:
+def _count(name: str, route: str) -> None:
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+        ROUTE_LAUNCHES[f"{name}:{route}"] += 1
 
 
 def _common_checks(t_proc, chip, ppos, n_chips):
@@ -189,53 +366,77 @@ def _common_checks(t_proc, chip, ppos, n_chips):
     return dev, pop, t_len, width
 
 
-def mapping_eval_cuda(t_proc, chip, ppos, n_chips: int,
-                      grid_order: str = "batch_major"):
-    """Launch ``mapping_eval_kernel`` on the current stream (no sync):
-    t_proc (B, P, T) f32, chip (P, T) i32, ppos (P, T, W) i32, all
-    contiguous on one CUDA device -> (end (B, P, T), free (B, P, C))."""
+def _launch(name: str, t_proc, sched_idx, chip, ppos, n_chips: int,
+            grid_order: str, route: str | None):
+    """Check the operands, plan the call and launch the route's kernel on
+    the current stream (no sync). ``sched_idx`` is None for the unfused
+    kernel. ``route`` None takes the plan's; "global" forces the global-row
+    kernel (for timing it beside the shared one); "shared" raises where the
+    plan cannot take it."""
     order = check_grid_order(grid_order)
+    if route not in (None, *ROUTES):
+        raise ValueError(f"unknown route {route!r}; choose from {ROUTES}")
+    fused = sched_idx is not None
     dev, pop, t_len, width = _common_checks(t_proc, chip, ppos, n_chips)
-    n_batch = t_proc.shape[0]
-    _check("t_proc", t_proc, torch.float32, (n_batch, pop, t_len), dev)
+    n_batch, n_flat = t_proc.shape[0], t_proc.shape[-1]
+    if fused:
+        _check("sched_idx", sched_idx, torch.int32, (pop, t_len), dev)
+    else:
+        n_flat = t_len
+    _check("t_proc", t_proc, torch.float32, (n_batch, pop, n_flat), dev)
+    plan = kernel_plan(t_proc, chip, ppos, n_chips, fused)
+    if route == "shared" and plan.route != "shared":
+        raise ValueError(f"{name}: T={t_len} rows of {n_batch} batches do "
+                         f"not fit a block's shared memory")
     end = torch.empty((n_batch, pop, t_len), dtype=torch.float32, device=dev)
     free = torch.empty((n_batch, pop, n_chips), dtype=torch.float32,
                        device=dev)
     lib = _lib()
+    ptrs = (t_proc.data_ptr(), sched_idx.data_ptr() if fused else None,
+            chip.data_ptr(), ppos.data_ptr(), end.data_ptr(),
+            free.data_ptr())
+    route = route or plan.route
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mapping_eval_launch(
-            t_proc.data_ptr(), chip.data_ptr(), ppos.data_ptr(),
-            end.data_ptr(), free.data_ptr(), n_batch, pop, t_len, width,
-            n_chips, order, stream)
-    _raise_on(rc, "mapping_eval")
-    _count("mapping_eval")
+        if route == "shared":
+            rc = lib.mapping_eval_rows_launch(
+                int(fused), *ptrs, n_batch, pop, t_len, width, n_chips,
+                n_flat, plan.ind_per_block, plan.tile, plan.producer_warps,
+                order, plan.smem_bytes, stream)
+        elif fused:
+            rc = lib.mapping_eval_fused_launch(
+                *ptrs, n_batch, pop, t_len, width, n_chips, n_flat, order,
+                stream)
+        else:
+            rc = lib.mapping_eval_launch(
+                ptrs[0], *ptrs[2:], n_batch, pop, t_len, width, n_chips,
+                order, stream)
+    _raise_on(rc, name)
+    _count(name, route)
     return end, free
+
+
+def mapping_eval_cuda(t_proc, chip, ppos, n_chips: int,
+                      grid_order: str = "batch_major",
+                      route: str | None = None):
+    """Launch ``mapping_eval_kernel<false>`` (or, for long chains, the
+    global-row kernel) on the current stream (no sync): t_proc (B, P, T)
+    f32, chip (P, T) i32, ppos (P, T, W) i32, all contiguous on one CUDA
+    device -> (end (B, P, T), free (B, P, C)). ``route`` as in
+    :func:`_launch`."""
+    return _launch("mapping_eval", t_proc, None, chip, ppos, n_chips,
+                   grid_order, route)
 
 
 def mapping_eval_fused_cuda(t_proc, sched_idx, chip, ppos, n_chips: int,
-                            grid_order: str = "batch_major"):
-    """Launch ``mapping_eval_fused_kernel`` on the current stream (no
-    sync): t_proc (B, P, L) f32 un-gathered cost rows, sched_idx (P, T)
-    i32, chip (P, T) i32, ppos (P, T, W) i32 -> (end, free)."""
-    order = check_grid_order(grid_order)
-    dev, pop, t_len, width = _common_checks(t_proc, chip, ppos, n_chips)
-    n_batch, _, n_flat = t_proc.shape
-    _check("t_proc", t_proc, torch.float32, (n_batch, pop, n_flat), dev)
-    _check("sched_idx", sched_idx, torch.int32, (pop, t_len), dev)
-    end = torch.empty((n_batch, pop, t_len), dtype=torch.float32, device=dev)
-    free = torch.empty((n_batch, pop, n_chips), dtype=torch.float32,
-                       device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mapping_eval_fused_launch(
-            t_proc.data_ptr(), sched_idx.data_ptr(), chip.data_ptr(),
-            ppos.data_ptr(), end.data_ptr(), free.data_ptr(), n_batch, pop,
-            t_len, width, n_chips, n_flat, order, stream)
-    _raise_on(rc, "mapping_eval_fused")
-    _count("mapping_eval_fused")
-    return end, free
+                            grid_order: str = "batch_major",
+                            route: str | None = None):
+    """Launch ``mapping_eval_kernel<true>`` (or the fused global-row
+    kernel) on the current stream (no sync): t_proc (B, P, L) f32
+    un-gathered cost rows, sched_idx (P, T) i32, chip (P, T) i32, ppos
+    (P, T, W) i32 -> (end, free)."""
+    return _launch("mapping_eval_fused", t_proc, sched_idx, chip, ppos,
+                   n_chips, grid_order, route)
 
 
 def autotune_grid_order(t_proc, sched_idx, chip, ppos, n_chips: int) -> str:

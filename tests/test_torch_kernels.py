@@ -188,14 +188,127 @@ def test_build_paths(monkeypatch, tmp_path):
         build.compile_source("mapping_eval.cu")
 
 
+# An H100's limits: SMs, shared bytes a block may opt in to, per SM.
+H100 = (132, 232448, 233472)
+
+
+def _cap_t(n_batch, width, n_chips, fused, limits=H100):
+    """The longest chain the shared route takes (plan by plan), with cost
+    rows as long as the chain (L = T)."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        plan = me.row_plan(n_batch, 1, mid, width, n_chips, mid, fused,
+                           *limits)
+        lo, hi = (mid, hi) if plan.route == "shared" else (lo, mid - 1)
+    return lo
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n_batch", [1, 3, 8])
+def test_row_plan_fits_shared_memory(n_batch, fused):
+    """Every plan fits an H100 block: its shared bytes are the layout's and
+    at most 232,448, its threads are whole warps plus the producer, and
+    its blocks cover the population."""
+    for pop, t_len, width, n_chips in itertools.product(
+            (1, 7, 64, 512, 2048, 4096), (1, 15, 80, 320, 3000), (1, 8, 11),
+            (1, 16)):
+        n_flat = t_len + 7 if fused else t_len
+        plan = me.row_plan(n_batch, pop, t_len, width, n_chips, n_flat,
+                           fused, *H100)
+        assert plan.route == "shared"
+        assert plan.smem_bytes == me.smem_bytes(
+            n_batch, t_len, width, n_chips, n_flat, plan.ind_per_block,
+            plan.tile, fused)
+        assert plan.smem_bytes <= H100[1]
+        assert plan.smem_bytes % 16 == 0
+        assert plan.pairs_per_block == plan.ind_per_block * n_batch
+        chain_warps = -(-plan.pairs_per_block // 32)
+        assert plan.producer_warps == me.PRODUCERS * chain_warps
+        assert plan.threads == 32 * (chain_warps + plan.producer_warps)
+        assert plan.threads <= me.MAX_THREADS
+        assert plan.tile in me.TILES
+        assert 1 <= plan.ind_per_block <= pop
+        assert plan.blocks == -(-pop // plan.ind_per_block)
+        assert plan.blocks_per_sm >= 1
+
+
+@pytest.mark.parametrize("n_batch,width,n_chips,fused",
+                         [(1, 1, 2, True), (3, 8, 16, True),
+                          (3, 8, 16, False), (8, 1, 2, False)])
+def test_row_plan_route_switches_at_cap(n_batch, width, n_chips, fused):
+    """The route turns global exactly where one individual's rows stop
+    fitting at every staging tile, and nowhere before."""
+    cap = _cap_t(n_batch, width, n_chips, fused)
+    at = me.row_plan(n_batch, 5, cap, width, n_chips, cap, fused, *H100)
+    past = me.row_plan(n_batch, 5, cap + 1, width, n_chips, cap + 1, fused,
+                       *H100)
+    assert at.route == "shared" and at.ind_per_block == 1
+    assert at.smem_bytes <= H100[1]
+    assert past.route == "global"
+    assert past.pairs_per_block == past.threads == 64
+    assert past.blocks == -(-n_batch * 5 // 64)
+    assert all(me.smem_bytes(n_batch, cap + 1, width, n_chips, cap + 1, 1,
+                             tile, fused) > H100[1] for tile in me.TILES)
+    # an end row and a cost row of T floats per pair: about 29,000 / B
+    # steps on an H100
+    assert 25_000 < cap * n_batch < 29_100
+
+
+def test_row_plan_edges():
+    """T = 1, W = 1, C = 1 takes the smallest tile; a B * P that no block
+    size divides leaves a partial last block; fewer SMs mean more
+    individuals per block; the plan needs no device."""
+    plan = me.row_plan(1, 1, 1, 1, 1, 1, True, *H100)
+    assert plan == me.RowPlan("shared", 1, 1, 32 * (1 + me.PRODUCERS),
+                              me.PRODUCERS, 4, plan.smem_bytes, 1,
+                              plan.blocks_per_sm)
+    plan = me.row_plan(3, 7, 320, 8, 16, 320, False, 2, 232448, 233472)
+    assert plan.ind_per_block == 4 and plan.blocks == 2
+    assert plan.ind_per_block * plan.blocks > 7
+    assert plan.pairs_per_block == 12 and plan.producer_warps == me.PRODUCERS
+    # the search's shape (T = L = 320): up to P 2048 all blocks in one
+    # wave, the larger P taking a smaller tile first; P 4096 in two
+    for fused in (False, True):
+        plans = {pop: me.row_plan(3, pop, 320, 8, 16, 320, fused, *H100)
+                 for pop in (64, 512, 2048, 4096)}
+        for pop in (64, 512, 2048):
+            assert plans[pop].blocks <= H100[0] * plans[pop].blocks_per_sm
+        assert plans[2048].tile < plans[512].tile
+        assert plans[4096].blocks <= 2 * H100[0] * plans[4096].blocks_per_sm
+
+
+def _malform(chip, sched, n_chips, n_flat, at_chip, at_sched):
+    """Copies with one chip id and one sched index out of range."""
+    chip, sched = chip.copy(), sched.copy()
+    chip[0, at_chip] = n_chips
+    sched[0, at_sched] = n_flat
+    sched[-1, at_sched] = -1
+    return chip, sched
+
+
+# (B, P, rows, cols, W, C): the old cases, then the search's graph (T 320,
+# W 8, C 16), a T that no staging tile divides and that is not a multiple
+# of 4 (so 4-byte copies), a ragged last tile with 16-byte copies, more
+# than 8 predecessor lanes, T = 1, W = 1, C = 1, and a B * P that no block
+# size divides
+CUDA_CASES = [(nb, pop, 3, 5, 2, 4) for nb, pop in CASES] + [
+    (3, 64, 4, 80, 8, 16), (3, 512, 4, 80, 8, 16), (2, 5, 7, 46, 3, 4),
+    (3, 9, 2, 162, 8, 16), (2, 3, 5, 13, 11, 3), (1, 1, 1, 1, 1, 1),
+    (3, 133, 2, 20, 4, 5)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid_order", ["batch_major", "pop_major"])
-@pytest.mark.parametrize("nb,pop", CASES)
-def test_cuda_kernels_bitwise_plain(cuda_device, grid_order, nb, pop):
-    chips = 4
-    arrays = _fused_case(nb * 10 + pop, nb, pop, rows=3, cols=5, width=2,
-                         chips=chips)
+@pytest.mark.parametrize("nb,pop,rows,cols,width,chips", CUDA_CASES)
+def test_cuda_kernels_bitwise_plain(cuda_device, grid_order, nb, pop, rows,
+                                    cols, width, chips):
+    arrays = _fused_case(nb * 10 + pop, nb, pop, rows=rows, cols=cols,
+                         width=width, chips=chips)
     t_proc, sched, chip, ppos = _torch(*arrays, device=cuda_device)
+    for fused in (False, True):
+        assert me.kernel_plan(t_proc, chip, ppos, chips,
+                              fused).route == "shared"
     before = me.launch_counts()
     end_k, free_k = ops.mapping_eval_fused(t_proc, sched, chip, ppos, chips,
                                            grid_order=grid_order)
@@ -210,5 +323,93 @@ def test_cuda_kernels_bitwise_plain(cuda_device, grid_order, nb, pop):
     assert after["mapping_eval"] == before["mapping_eval"] + 1
     assert torch.equal(end_k, end_p) and torch.equal(free_k, free_p)
     assert torch.equal(end_u, end_p) and torch.equal(free_u, free_p)
-    e_end, _ = t_ref.mapping_eval_fused_reference(*arrays, chips)
+    # the global-row route gives the same bits
+    end_g, free_g = me.mapping_eval_fused_cuda(t_proc, sched, chip, ppos,
+                                               chips, grid_order, "global")
+    end_gu, free_gu = me.mapping_eval_cuda(gathered, chip, ppos, chips,
+                                           grid_order, "global")
+    assert torch.equal(end_g, end_p) and torch.equal(free_g, free_p)
+    assert torch.equal(end_gu, end_p) and torch.equal(free_gu, free_p)
+    e_end, e_free = t_ref.mapping_eval_fused_reference(*arrays, chips)
     np.testing.assert_allclose(end_k.cpu().numpy(), e_end, rtol=1e-5)
+    np.testing.assert_allclose(free_k.cpu().numpy(), e_free, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_kernels_bitwise_plain_at_the_cap(cuda_device, fused):
+    """At the longest chain the card's plan keeps on the shared route, and
+    one step past it (the global route): bitwise the plain version, and
+    each call one launch of the kernel's counter."""
+    nb, pop, width, chips = 8, 2, 1, 2
+    limits = me.device_limits(cuda_device)
+    cap = _cap_t(nb, width, chips, fused, limits)
+    for t_len, route in ((cap, "shared"), (cap + 1, "global")):
+        arrays = _fused_case(t_len, nb, pop, rows=1, cols=t_len,
+                             width=width, chips=chips)
+        t_proc, sched, chip, ppos = _torch(*arrays, device=cuda_device)
+        assert me.kernel_plan(t_proc, chip, ppos, chips,
+                              fused).route == route
+        name = "mapping_eval_fused" if fused else "mapping_eval"
+        before = me.launch_counts()[name]
+        if fused:
+            end_k, free_k = me.mapping_eval_fused_cuda(t_proc, sched, chip,
+                                                       ppos, chips)
+            end_p, free_p = me.mapping_eval_fused_plain(
+                *(x.cpu() for x in (t_proc, sched, chip, ppos)), chips)
+        else:
+            tp = me.gather_sched(t_proc, sched).contiguous()
+            end_k, free_k = me.mapping_eval_cuda(tp, chip, ppos, chips)
+            end_p, free_p = me.mapping_eval_plain(
+                *(x.cpu() for x in (tp, chip, ppos)), chips)
+        torch.cuda.synchronize()
+        assert me.launch_counts()[name] == before + 1
+        assert torch.equal(end_k.cpu(), end_p)
+        assert torch.equal(free_k.cpu(), free_p)
+    with pytest.raises(ValueError, match="shared memory"):
+        me.mapping_eval_fused_cuda(t_proc, sched, chip, ppos, chips,
+                                   route="shared")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_cuda_out_of_range_is_nan_at_that_step(cuda_device, route):
+    """A chip id outside [0, C) and a sched index outside [0, L) poison
+    exactly their step with NaN; every step before it is the plain
+    version's, and both routes agree bit for bit on the rest."""
+    nb, pop, rows, cols, width, chips = 3, 6, 4, 80, 8, 16
+    t_proc, sched, chip, ppos = _fused_case(5, nb, pop, rows, cols, width,
+                                            chips)
+    t_len, at_chip, at_sched = rows * cols, 200, 77
+    bad_chip, bad_sched = _malform(chip, sched, chips, t_len, at_chip,
+                                   at_sched)
+    dev = cuda_device
+    tp, sch, ch, pp = _torch(t_proc, bad_sched, bad_chip, ppos, device=dev)
+    end_f, _ = me.mapping_eval_fused_cuda(tp, sch, ch, pp, chips,
+                                          route=route)
+    end_g, _ = me.mapping_eval_fused_cuda(tp, sch, ch, pp, chips,
+                                          route="global")
+    end_p, _ = me.mapping_eval_fused_plain(*_torch(t_proc, sched, chip,
+                                                   ppos, device=dev), chips)
+    torch.cuda.synchronize()
+    end_f, end_g, end_p = (x.cpu() for x in (end_f, end_g, end_p))
+    assert torch.equal(end_f.isnan(), end_g.isnan())
+    assert torch.equal(torch.nan_to_num(end_f), torch.nan_to_num(end_g))
+    # individual 0: the chip at step 200 and the sched index at step 77
+    # (past L) are out of range; the last individual: a negative index
+    assert end_f[:, 0, at_sched].isnan().all()
+    assert end_f[:, 0, at_chip].isnan().all()
+    assert end_f[:, -1, at_sched].isnan().all()
+    assert torch.equal(end_f[:, 0, :at_sched], end_p[:, 0, :at_sched])
+    assert torch.equal(end_f[:, -1, :at_sched], end_p[:, -1, :at_sched])
+    assert not end_f[:, 1:-1].isnan().any()
+    assert torch.equal(end_f[:, 1:-1], end_p[:, 1:-1])
+    # the unfused kernel: the bad chip alone
+    gathered = me.gather_sched(*_torch(t_proc, sched, device=dev))
+    end_u, _ = me.mapping_eval_cuda(gathered.contiguous(),
+                                    *_torch(bad_chip, ppos, device=dev),
+                                    chips, route=route)
+    end_u = end_u.cpu()
+    assert end_u[:, 0, at_chip].isnan().all()
+    assert torch.equal(end_u[:, 0, :at_chip], end_p[:, 0, :at_chip])
+    assert torch.equal(end_u[:, 1:], end_p[:, 1:])
