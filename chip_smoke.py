@@ -33,10 +33,12 @@ Phases — any failure raises and the script exits non-zero:
            lengths (0, 1, a range boundary - 1, at and + 1, S, past S), S
            below one tile, S not a whole number of tiles, and a B * Hkv
            that fills the card (one range).
-           The SSD scan kernel at mamba2-2.7b's prefill shape (B 2, L 512,
+           The SSD scan kernels at mamba2-2.7b's prefill shape (B 2, L 512,
            H 80, P 64, N 128), at the shapes of tests/test_kernels.py, at
-           a ragged L (700) and at L < 8 (5), its inputs strided slices
-           of one fused projection: y and the state within 1e-4 (float32)
+           a ragged L (700), at L < 8 (5) and at the edges of their tiles
+           (L 1, 63, 64, 65; N 1, 100, 256; P 5, 96, 100; H 81; B 3), their
+           inputs strided slices of one fused projection (at N 1 and P 5
+           not 16-byte aligned): y and the state within 1e-4 (float32)
            or 2e-2 (bfloat16) of the largest plain value, and at one
            small shape against the float64 sequential reference;
 3. main    the search path: ``explore`` on the canonical llama3.2-3b
@@ -97,7 +99,12 @@ Phases — any failure raises and the script exits non-zero:
            flash at L in {512, 2048}
            (float32 through the FMA kernel, bfloat16 through the
            tensor-core kernel),
-           the SSD scan at L in {512, 4096} (no library call computes it);
+           the SSD scan at L in {512, 4096} in both dtypes, its two
+           kernels and the first version of the kernel (one block per
+           (b, h, 64 columns of P) walking the chunks in series) in turns
+           (serial, new, new, serial), with each one's device time per
+           device kernel from ``torch.profiler`` and the wrapper's host
+           time per call (no library call computes it);
 6. profile one hardware point's mapping search (the search path's GA)
            under ``torch.profiler``: wall, device busy time and share, and
            the kernels that take the device time.
@@ -145,10 +152,19 @@ SSD_KERNEL = ("ssd_scan", f"{CSRC}/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:30")
 SSD_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}   # of the largest value
 # (B, L, H, P, N): the first is mamba2-2.7b's prefill of 2 x 512 tokens,
-# then the shapes of tests/test_kernels.py, a ragged L and L < 8
+# then the shapes of tests/test_kernels.py, a ragged L and L < 8; then the
+# edges of the kernels' tiles: L of 1, 63, 64 and 65 (one chunk, its edge,
+# two chunks), N of 1 (B and C not 16-byte aligned in the fused row), 100
+# and 256 (two state-row tiles), P of 5 (x not aligned), 96 and 100 (a
+# ragged second column tile), H 81 and B 3
 SSD_MAIN = (2, 512, 80, 64, 128)
 SSD_PARITY = [SSD_MAIN, (1, 96, 2, 16, 8), (2, 70, 3, 8, 16),
-              (1, 128, 1, 32, 32), (1, 700, 80, 64, 128), (2, 5, 80, 64, 128)]
+              (1, 128, 1, 32, 32), (1, 700, 80, 64, 128), (2, 5, 80, 64, 128),
+              (2, 1, 8, 64, 128), (2, 63, 8, 64, 128), (2, 64, 8, 64, 128),
+              (2, 65, 8, 64, 128), (2, 200, 4, 64, 1), (2, 150, 4, 64, 100),
+              (2, 300, 8, 64, 256), (2, 130, 8, 5, 128), (2, 130, 8, 96, 128),
+              (2, 130, 8, 100, 128), (2, 130, 81, 64, 128),
+              (3, 130, 8, 64, 128)]
 SSD_TIMES = [SSD_MAIN, (2, 4096, 80, 64, 128)]
 MAMBA_ARCH, MAMBA_LAYERS = "mamba2-2.7b", 64
 MAIN_POP, MAIN_GENS = 512, 16
@@ -471,12 +487,14 @@ def ssd_inputs(shape, dtype: str, seed: int) -> dict:
 
 
 def run_ssd(inp: dict, how: str):
-    """One call of the SSD kernel (``cuda``) or its plain version."""
+    """One call of the SSD kernels (``cuda``), of the first version of the
+    kernel (``serial``, not on any path) or of the plain version."""
     from repro_torch.kernels import ssd_scan as ss
 
     args = (inp["x"], inp["dt"], inp["a"], inp["b"], inp["c"])
-    return ss.ssd_scan_cuda(*args) if how == "cuda" \
-        else ss.ssd_scan_plain(*args)
+    fn = {"cuda": ss.ssd_scan_cuda, "serial": ss._ssd_scan_serial_cuda,
+          "plain": ss.ssd_scan_plain}[how]
+    return fn(*args)
 
 
 def ssd_bound(inp: dict) -> dict:
@@ -772,8 +790,8 @@ def _decode_split_parity(inp: dict, got, tol: float) -> dict:
 
 
 def phase_ssd_parity() -> float:
-    """The SSD kernel against its plain version on the same inputs (y and
-    the final state within SSD_TOLS of the largest plain value), and at
+    """The SSD kernels against their plain version on the same inputs (y
+    and the final state within SSD_TOLS of the largest plain value), and at
     one small shape both against the float64 sequential reference;
     returns the largest float32 error at the prefill shape."""
     import numpy as np
@@ -1650,29 +1668,66 @@ def _decode_costs(inp: dict, calls: int = 20) -> dict:
     return rec
 
 
+# the device kernels each SSD launcher runs
+SSD_DEVICE_KERNELS = {"cuda": ("ssd_state_kernel", "ssd_y_kernel"),
+                      "serial": ("ssd_serial_kernel",)}
+
+
+def _ssd_device(inp: dict, how: str, calls: int = 10) -> dict:
+    """Device ms per call of each device kernel of one SSD launcher, from
+    ``torch.profiler`` over ``calls`` calls; empty if the profiler missed
+    one of them five times."""
+    def run():
+        for _ in range(calls):
+            run_ssd(inp, how)
+
+    run()
+    for _ in range(5):   # the profiler now and then drops a kernel's records
+        _, kern = _profiled(run)
+        got = {e.key[:60]: _dev_us(e) / e.count / 1e3 for e in kern
+               if "ssd_" in e.key and e.count}
+        if all(any(name in k for k in got)
+               for name in SSD_DEVICE_KERNELS[how]):
+            return got
+    return {}
+
+
 def phase_ssd_times(serve: dict) -> dict:
-    """CUDA-event times of the SSD kernel and its plain version (in turns:
-    plain, kernel, kernel, plain) beside the bound, at mamba2-2.7b's
-    widths for L in {512, 4096}, in float32 and bfloat16. No PyTorch call
-    computes an SSD scan, so there is no library time. Returns the record
-    at the prefill shape in float32."""
+    """CUDA-event times of the SSD kernels and of the first version of the
+    kernel (in turns: serial, kernels, kernels, serial) and of the plain
+    version, beside the bound, at mamba2-2.7b's widths for L in {512,
+    4096}, in float32 and bfloat16; the profiler's device time of each
+    device kernel and the wrapper's host time per call of both. No PyTorch
+    call computes an SSD scan, so there is no library time. Returns the
+    record at the prefill shape in float32."""
+    from repro_torch.kernels import ssd_scan as ss
+
     at_main = None
     for i, shape in enumerate(SSD_TIMES):
         for dtype in SSD_TOLS:
             inp = ssd_inputs(shape, dtype, seed=200 + i)
-            t = {how: [] for how in ("cuda", "plain")}
-            for how in ("plain", "cuda", "cuda", "plain"):
-                reps = 20 if how == "cuda" else 3
-                t[how].append(_time_ms(lambda how=how: run_ssd(inp, how),
-                                       reps, 1))
+            t = {how: [] for how in ("cuda", "serial")}
+            for how in ("serial", "cuda", "cuda", "serial"):
+                t[how].append(_time_ms(lambda how=how: run_ssd(inp, how), 20))
+            dev = {how: _ssd_device(inp, how) for how in SSD_DEVICE_KERNELS}
+            plan = ss.ssd_plan(*shape, inp["x"].element_size())
             rec = {"kernel": "ssd_scan", "shape": list(shape),
                    "dtype": dtype, "kernel_ms": sum(t["cuda"]) / 2,
-                   "plain_ms": sum(t["plain"]) / 2,
-                   "kernel_ms_runs": t["cuda"], "plain_ms_runs": t["plain"],
-                   "library_ms": None,
+                   "serial_ms": sum(t["serial"]) / 2,
+                   "kernel_ms_runs": t["cuda"], "serial_ms_runs": t["serial"],
+                   "device_ms": sum(dev["cuda"].values()) or None,
+                   "device_kernels": dev["cuda"],
+                   "serial_device_ms": sum(dev["serial"].values()) or None,
+                   "host_us_per_call": _host_us_per_call(
+                       lambda: run_ssd(inp, "cuda")),
+                   "serial_host_us_per_call": _host_us_per_call(
+                       lambda: run_ssd(inp, "serial")),
+                   "plain_ms": _time_ms(lambda: run_ssd(inp, "plain"), 3, 1),
+                   "plan": plan._asdict(), "library_ms": None,
                    "launches_on_path": serve["launches"]["ssd_scan"],
                    **ssd_bound(inp)}
             rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+            rec["serial_over_kernel"] = rec["serial_ms"] / rec["kernel_ms"]
             emit(rec)
             if i == 0 and dtype == "float32":
                 at_main = rec

@@ -177,30 +177,120 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("b,l,h,p,n", [c[:5] for c in CASES]
-                         + [(2, 512, 80, 64, 128), (1, 700, 80, 64, 128)])
-def test_cuda_matches_plain(cuda_device, b, l, h, p, n, dtype, tol):
-    """The kernel against its plain version, within ``tol`` of the largest
-    value; x, B and C are slices of one fused projection, as the mixer
-    hands them over."""
-    rng = np.random.default_rng(l + n)
+# (B, L, H, P, N) at the edges of the kernels' tiles: L of one chunk, its
+# edge and two chunks, a ragged L; N 1 (B and C not 16-byte aligned in the
+# fused row), 100, 256 (two state-row tiles); P 5 (x not aligned), 96 and
+# 100 (a ragged second column tile); H 81; B 3
+EDGES = [(2, 1, 8, 64, 128), (2, 63, 8, 64, 128), (2, 64, 8, 64, 128),
+         (2, 65, 8, 64, 128), (1, 700, 8, 64, 128), (2, 200, 4, 64, 1),
+         (2, 150, 4, 64, 100), (2, 300, 8, 64, 256), (2, 130, 8, 5, 128),
+         (2, 130, 8, 96, 128), (2, 130, 8, 100, 128), (2, 130, 81, 64, 128),
+         (3, 130, 8, 64, 128)]
+
+
+def _fused_inputs(device, b, l, h, p, n, dtype, seed):
+    """x, dt, a, B, C with x, B and C slices of one fused projection."""
+    rng = np.random.default_rng(seed)
     dt_ = getattr(torch, dtype)
     fused = torch.as_tensor(rng.normal(size=(b, l, h * p + 2 * n)),
-                            device=cuda_device).to(dt_)
+                            device=device).to(dt_)
     x = fused[..., :h * p].reshape(b, l, h, p)
     bm, cm = fused[..., h * p:h * p + n], fused[..., h * p + n:]
     dt = torch.as_tensor(rng.uniform(0.01, 0.2, size=(b, l, h)),
-                         dtype=torch.float32, device=cuda_device)
+                         dtype=torch.float32, device=device)
     a = torch.as_tensor(-rng.uniform(0.5, 2.0, size=h), dtype=torch.float32,
-                        device=cuda_device)
+                        device=device)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("b,l,h,p,n", [c[:5] for c in CASES]
+                         + [(2, 512, 80, 64, 128), (1, 700, 80, 64, 128)]
+                         + EDGES)
+def test_cuda_matches_plain(cuda_device, b, l, h, p, n, dtype, tol):
+    """The kernels against their plain version, within ``tol`` of the
+    largest value; x, B and C are slices of one fused projection, as the
+    mixer hands them over. The first version of the kernel (timed beside
+    them on the card) holds the same."""
+    x, dt, a, bm, cm = _fused_inputs(cuda_device, b, l, h, p, n, dtype,
+                                     l + n)
     before = ops.launch_counts()["ssd_scan"]
     y, s = ops.ssd_scan(x, dt, a, bm, cm)
     y_p, s_p = ss.ssd_scan_plain(x, dt, a, bm, cm)
+    y_1, s_1 = ss._ssd_scan_serial_cuda(x, dt, a, bm, cm)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssd_scan"] == before + 1
     assert y.dtype == x.dtype and s.dtype == torch.float32
-    for got, want in ((y, y_p), (s, s_p)):
+    for got, want in ((y, y_p), (s, s_p), (y_1, y_p), (s_1, s_p)):
+        assert torch.isfinite(got).all()
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n", [(1, 96, 2, 16, 8), (2, 130, 3, 5, 1)])
+def test_cuda_matches_float64_reference(cuda_device, b, l, h, p, n):
+    """y and the final state against the float64 sequential recurrence
+    (``ref.ssd_reference``), within 1e-4 of the largest value."""
+    arrays = _inputs(b + l, b, l, h, p, n)
+    y, s = ss.ssd_scan_cuda(*(t.to(cuda_device) for t in _t(arrays)))
+    r_y, r_s = t_ref.ssd_reference(*arrays)
+    for got, want in ((y, r_y), (s, r_s)):
+        err = np.abs(got.cpu().numpy().astype(np.float64) - want).max()
+        assert err <= TOL * np.abs(want).max()
+
+
+def test_plan_at_the_prefill_shape():
+    """mamba2-2.7b's 2 x 512 prefill: C B^T once per (batch, chunk), 640
+    state blocks (B H x 2 column tiles x 2 state-row tiles) and 1,280 y
+    blocks, at least 640 independent blocks each where the first version
+    ran 160; the workspace holds every chunk's float32 state and the
+    64 x 64 C B^T tiles; shared bytes within the card's limit."""
+    b, l, h, p, n = 2, 512, 80, 64, 128
+    for item in (4, 2):
+        plan = ss.ssd_plan(b, l, h, p, n, item)
+        assert plan.chunks == 8 and plan.p_pad == 64
+        assert plan.cb_blocks == b * plan.chunks == 16
+        assert plan.state_blocks == b * h * 2 * 2 == 640
+        assert plan.y_blocks == b * plan.chunks * h == 1280
+        states = 4 * b * h * plan.chunks * n * p
+        assert plan.workspace_bytes == states + 4 * b * plan.chunks * 64 * 64
+        assert max(plan.state_smem, plan.y_smem) <= ss.MAX_SMEM
+    f32, bf16 = ss.ssd_plan(b, l, h, p, n, 4), ss.ssd_plan(b, l, h, p, n, 2)
+    assert (f32.state_smem, f32.y_smem) == (27_136, 36_608)
+    assert (bf16.state_smem, bf16.y_smem) == (28_160, 54_528)
+
+
+@pytest.mark.parametrize("b,l,h,p,n", EDGES + [(2, 4096, 80, 64, 128),
+                                              (1, 0, 2, 8, 16)])
+@pytest.mark.parametrize("item", [4, 2])
+def test_plan_tiles_and_workspace(b, l, h, p, n, item):
+    """Tile counts cover every position, column and state row once; the
+    workspace rows are P rounded up to 4, each part 256-byte aligned;
+    shared bytes do not depend on the shape and fit a block."""
+    plan = ss.ssd_plan(b, l, h, p, n, item)
+    assert plan.chunks * ss.KERNEL_CHUNK >= l > (plan.chunks - 1) * 64
+    assert plan.p_tiles * 64 >= p > (plan.p_tiles - 1) * 64
+    assert plan.s_tiles * 32 >= p > (plan.s_tiles - 1) * 32
+    assert plan.n_tiles * 64 >= n > (plan.n_tiles - 1) * 64
+    assert plan.p_pad % 4 == 0 and p <= plan.p_pad < p + 4
+    assert plan.state_blocks == b * h * plan.s_tiles * plan.n_tiles
+    assert plan.y_blocks == b * plan.chunks * h * plan.p_tiles
+    assert plan.cb_blocks == b * plan.chunks
+    states = 4 * b * h * plan.chunks * n * plan.p_pad
+    assert plan.workspace_bytes == (-(-states // 256) * 256
+                                    + 4 * b * plan.chunks * 64 * 64)
+    ref = ss.ssd_plan(2, 512, 80, 64, 128, item)
+    assert (plan.state_smem, plan.y_smem) == (ref.state_smem, ref.y_smem)
+    assert max(plan.state_smem, plan.y_smem) <= ss.MAX_SMEM
+
+
+def test_serial_launcher_refuses_cpu_and_is_not_counted():
+    """The first version's private launcher takes CUDA tensors only and
+    is not counted as a launch of the path's kernels."""
+    arrays = _t(_inputs(2, 1, 20, 2, 8, 8))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ss._ssd_scan_serial_cuda(*arrays)
+    assert ops.launch_counts() == before
