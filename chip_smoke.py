@@ -24,9 +24,13 @@ Phases — any failure raises and the script exits non-zero:
            lengths; flash B 2, L 512 and 2048 causal, and Lq 100 < Lk
            512) and, for flash, at every D
            in {32, 64, 96, 128}, causal and bidirectional, ragged L,
-           L < 16 and Hq / Hkv of 1, 3 and 8: 2e-5 in float32, 2e-2 in
-           bfloat16 (the bfloat16 tensor-core kernel also within 2e-2 of
-           the largest value); decode with a float32 q over a bfloat16
+           L < 16 and Hq / Hkv of 1, 3 and 8: 2e-5 in float32 (the
+           float32 flash kernel and the first float32 flash kernel both),
+           2e-2 in bfloat16 (the bfloat16 tensor-core kernel also within
+           2e-2 of the largest value); at flash's float32 serving shape
+           the kernel's largest distance from the float64 reference at
+           most F64_FACTOR x the plain version's; decode with a float32 q
+           over a bfloat16
            cache at 2e-5 and a bfloat16 q over a float32 cache at 2e-2;
            every decode case against the plain version in one range and
            under the kernel's own split plan, at S 8192, at split-edge
@@ -96,9 +100,12 @@ Phases — any failure raises and the script exits non-zero:
            device time per call from ``torch.profiler`` -- split and
            combine kernels summed -- and its host time per call over
            back-to-back calls, and the same two for the library call),
-           flash at L in {512, 2048}
-           (float32 through the FMA kernel, bfloat16 through the
-           tensor-core kernel),
+           flash at L in {512, 2048} and Lq 100 < Lk 512
+           (float32 through the FMA kernel, in turns with the first float32
+           kernel as well: first, new, new, first; bfloat16 through the
+           tensor-core kernel; each kernel's device time per call from
+           ``torch.profiler`` and the wrapper's host time per call; the
+           float32 plan and its blocks per SM by the occupancy calculator),
            the SSD scan at L in {512, 4096} in both dtypes, its two
            kernels and the first version of the kernel (one block per
            (b, h, 64 columns of P) walking the chunks in series) in turns
@@ -147,6 +154,7 @@ ATTN_KERNELS = {
                              "src/repro/kernels/flash_attention.py:24"),
 }
 ATTN_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+F64_FACTOR = 2.0   # float32 flash: distance from float64, of the plain's
 # the Mamba-2 path's kernel: (its source, the body of the TPU kernel)
 SSD_KERNEL = ("ssd_scan", f"{CSRC}/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:30")
@@ -402,8 +410,9 @@ def flash_inputs(shape, dtype: str, seed: int) -> dict:
 
 def run_attention(name: str, inp: dict, how: str):
     """One call of an attention kernel (``cuda``), its plain version
-    (``plain``) or the PyTorch library call for the same function
-    (``library``: ``scaled_dot_product_attention``, timed here only)."""
+    (``plain``), the first float32 flash kernel (``first``, not on any path)
+    or the PyTorch library call for the same function (``library``:
+    ``scaled_dot_product_attention``, timed here only)."""
     import torch
     import torch.nn.functional as F
 
@@ -429,6 +438,8 @@ def run_attention(name: str, inp: dict, how: str):
     causal = inp["causal"]
     if how == "cuda":
         return fa.flash_attention_cuda(q, k, v, causal)
+    if how == "first":         # the first float32 kernel, on no path
+        return fa._flash_attention_f32_first_cuda(q, k, v, causal)
     if how == "plain":
         return fa.flash_attention_plain(q, k, v, causal)
     return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
@@ -745,7 +756,11 @@ def phase_attention_parity() -> dict:
                        "serving_shape": main}
                 if name == "decode_attention":
                     rec.update(_decode_split_parity(inp, got, tol))
+                if kernel == "flash_attention":
+                    rec["first_max_abs_err"] = _first_flash_parity(inp, want,
+                                                                   tol)
                 emit(rec)
+    emit(_flash_float64_check())
     for q_dtype, kv_dtype in (("float32", "bfloat16"),
                               ("bfloat16", "float32")):
         tol = ATTN_TOLS[q_dtype]
@@ -766,6 +781,42 @@ def phase_attention_parity() -> dict:
                   "shape": list(shape), "dtype": what, "max_abs_err": err,
                   "tol": tol, **_decode_split_parity(inp, got, tol)})
     return errs
+
+
+def _first_flash_parity(inp: dict, want, tol: float) -> float:
+    """The first float32 flash kernel against the plain version's output
+    ``want`` on the same inputs; returns its largest error."""
+    import torch
+
+    got = run_attention("flash_attention", inp, "first")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.isfinite(got).all().item() and err <= tol,
+          f"the first float32 flash kernel at {tuple(inp['q'].shape)} "
+          f"differs from its plain version: max abs err {err} > {tol}")
+    return err
+
+
+def _flash_float64_check() -> dict:
+    """At FLASH_MAIN in float32: the largest distance of the flash kernel,
+    the first float32 kernel and the plain version from the float64
+    reference (``kernels/ref.py``); the kernel's may be at most
+    F64_FACTOR x the plain version's."""
+    from repro_torch.kernels import ref
+
+    inp = flash_inputs(FLASH_MAIN, "float32", seed=0)
+    arrays = [inp[key].cpu().numpy() for key in ("q", "k", "v")]
+    want = ref.flash_attention_reference(*arrays, inp["causal"])
+    dist = {how: float(abs(run_attention("flash_attention", inp, how)
+                           .double().cpu().numpy() - want).max())
+            for how in ("cuda", "first", "plain")}
+    check(dist["cuda"] <= F64_FACTOR * dist["plain"],
+          f"flash_attention at {FLASH_MAIN}: {dist['cuda']} from the float64 "
+          f"reference, more than {F64_FACTOR} x the plain version's "
+          f"{dist['plain']}")
+    return {"phase": "parity", "kernel": "flash_attention",
+            "shape": list(FLASH_MAIN), "dtype": "float32",
+            "float64_max_abs_dist": dist, "factor": F64_FACTOR}
 
 
 def _decode_split_parity(inp: dict, got, tol: float) -> dict:
@@ -1579,8 +1630,12 @@ def phase_times(ev, runs: dict) -> dict:
 def phase_attention_times(serve: dict) -> dict:
     """CUDA-event times of each attention kernel, its plain version and the
     library call on the same inputs (library and kernel in turns: library,
-    kernel, kernel, library), beside the bound. Returns the records at each
-    kernel's serving path's shape (ATTN_MAIN)."""
+    kernel, kernel, library; the float32 flash kernel also with the first
+    float32 kernel in turns inside them: first, kernel, kernel, first),
+    beside the bound. Flash adds the profiler's device time per call and
+    the wrapper's host time per call of each kernel, and in float32 the
+    plan and the occupancy calculator's blocks per SM. Returns the records
+    at each kernel's serving path's shape (ATTN_MAIN)."""
     at_main = {}
     for name, shapes, make in (("decode_attention", DECODE_TIMES,
                                 decode_inputs),
@@ -1590,8 +1645,12 @@ def phase_attention_times(serve: dict) -> dict:
             for dtype in ATTN_TOLS:
                 kernel = attn_kernel(name, dtype)
                 inp = make(shape, dtype, seed=100 + i)
-                t = {how: [] for how in ("cuda", "library")}
-                for how in ("library", "cuda", "cuda", "library"):
+                first = kernel == "flash_attention"
+                order = ("library", "first", "cuda", "cuda", "first",
+                         "library") if first else \
+                    ("library", "cuda", "cuda", "library")
+                t = {how: [] for how in order}
+                for how in order:
                     t[how].append(_time_ms(
                         lambda how=how: run_attention(name, inp, how), 20))
                 rec = {"kernel": kernel, "shape": list(shape), "dtype": dtype,
@@ -1608,10 +1667,58 @@ def phase_attention_times(serve: dict) -> dict:
                     rec["kernel_ms"] / rec["library_ms"]
                 if name == "decode_attention":
                     rec.update(_decode_costs(inp))
+                else:
+                    rec.update(_flash_costs(inp, kernel))
+                if first:
+                    rec["first_ms"] = sum(t["first"]) / 2
+                    rec["first_ms_runs"] = t["first"]
+                    rec["first_over_kernel"] = \
+                        rec["first_ms"] / rec["kernel_ms"]
                 emit(rec)
                 if ATTN_MAIN[kernel] == (shape, dtype):
                     at_main[kernel] = rec
     return at_main
+
+
+# the device kernel each flash launcher runs
+FLASH_DEVICE_KERNELS = {"flash_attention": {"cuda": "flash_attention_kernel",
+                                            "first": "f32_first_kernel"},
+                        "flash_attention_bf16": {
+                            "cuda": "flash_attention_bf16_kernel"}}
+
+
+def _flash_costs(inp: dict, kernel: str, calls: int = 10) -> dict:
+    """Device ms per call from ``torch.profiler`` and the wrapper's host
+    µs per call of each flash launcher of ``kernel`` (the float32 kernel
+    and the first float32 kernel, or the bfloat16 kernel); for float32 the
+    plan and the resident blocks per SM."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rec = {}
+    for how, key in FLASH_DEVICE_KERNELS[kernel].items():
+        def run(how=how):
+            for _ in range(calls):
+                run_attention("flash_attention", inp, how)
+
+        run()
+        dev = None
+        for _ in range(10):  # the profiler now and then records nothing
+            _, kern = _profiled(run)
+            mine = [e for e in kern if key in e.key]
+            if mine:
+                dev = _device_ms_per_call(mine, calls)
+                break
+        label = "" if how == "cuda" else f"{how}_"
+        rec[f"{label}device_ms"] = dev
+        rec[f"{label}host_us_per_call"] = _host_us_per_call(
+            lambda how=how: run_attention("flash_attention", inp, how))
+    if kernel == "flash_attention":
+        q, k = inp["q"], inp["k"]
+        b, hq, lq, d = q.shape
+        plan = fa.flash_f32_plan(b, hq, k.shape[1], lq, k.shape[2], d)
+        rec["plan"] = plan._asdict()
+        rec["blocks_per_sm_occupancy"] = fa.f32_blocks_per_sm(d, q.device)
+    return rec
 
 
 def _host_us_per_call(fn, calls: int = 50) -> float:

@@ -14,21 +14,43 @@
 // 4 * D per visible (query, key) pair and head: at 67 TFLOP/s in float32,
 // at 989 TFLOP/s on the bfloat16 tensor cores.
 //
-// Two kernels, one per storage type; each type reaches exactly one.
+// Two kernels on the path, one per storage type; each type reaches exactly
+// one. A third, the first float32 version, is kept off the path.
 //
-// float32, flash_attention_kernel: one block of 128 threads per
-// (b * Hq + h, tile of kBQ = 64 queries). The query tile is staged in shared
-// memory once; the block then walks the key/value tiles of kBK = 32
-// positions up to the causal frontier of its last query (tiles wholly past
-// it are never loaded), staging each in shared memory as float32. The 128
-// threads form a 16 x 8 grid: thread (ty, tx) scores query rows ty + 16 i
-// (i < 4) against key columns tx + 8 j (j < 4), so the 8 threads of a row
-// group are 8 lanes of one warp and reduce the row's max and sum with three
-// shuffles; the same thread then accumulates p @ V for its 4 rows and the
-// head-dimension columns tx + 8 jj (jj < D / 8), in registers. Rows of Q
-// and K are padded by one float in shared memory so the lanes of a warp
-// read distinct banks. The products are float32 FMAs: TF32 tensor cores
-// would round the inputs to 10 mantissa bits, above float32's tolerance.
+// float32, flash_attention_kernel: float32 FMAs (TF32 tensor cores would
+// round the inputs to 10 mantissa bits, above float32's tolerance). A
+// warp-wide float4 read of shared memory hands 512 bytes to the lanes, 4 of
+// the SM's 128 bytes a clock, and 4 warp FMAs issue a clock: so the kernel
+// is held by how many FMAs each float4 read feeds (16 to keep up), which
+// the size of each thread's register tile sets. One block of 128 threads
+// per (b * Hq + h, tile of 64 queries), 2 blocks (8 warps) an SM: 112 KB of
+// shared memory at D 128. Blocks go out with every head's last query tile
+// (the longest causal rows) first, so the short tiles fill the last wave.
+// Thread (ry, kx), ry < 8, kx < 16, owns query rows ry + 8 i (i < 8): it
+// scores them against keys kx + 16 j (j < 4) of a 64-key tile (12 float4
+// reads per 128 FMAs) and accumulates their outputs over the 16-byte
+// column chunks kx + 16 c of D (16 reads per 256 FMAs at D 128), so a
+// row's max and sum stay with the 16 lanes of its group (four shuffles).
+// Q and K tiles are row-major in shared memory without padding, their
+// 16-byte chunks permuted by the row's low 3 bits, so the rows a warp
+// reads at one chunk fall on distinct banks; V is read along rows. The
+// weights go to shared memory (chunks permuted by row parity) and come back
+// 4 keys per float4. Q is copied once; one K and one V buffer take 16-byte
+// cp.async.cg copies (a source size of 0 zero-fills rows past lq or lk),
+// V(t) in flight while S(t) is computed and K(t + 1) while P V(t) is: two
+// barriers per tile. Scores are scaled into units of log2 and exponentiated
+// with ex2.approx. Tiles wholly past the causal frontier are never loaded, only
+// a tile that crosses the frontier or lk computes a mask, and rows whose
+// max did not move skip the rescale. The tile sizes, shared bytes and grid
+// are also computed by the host plan (flash_f32_plan in
+// kernels/flash_attention.py); the launcher refuses a plan that differs.
+//
+// The first float32 version, flash_attention_f32_first_kernel (reached
+// only by flash_attention_f32_first_launch, on no path): 64 x 32 tiles
+// loaded synchronously through registers into shared memory, scalar reads
+// (2 FMAs per shared-memory wavefront in the score loop), 3 blocks an SM,
+// blocks in query order. It stays as the partner the smoke run times the
+// new kernel against, and its output digests pin it.
 //
 // bfloat16, flash_attention_bf16_kernel: FlashAttention-2's structure on
 // the tensor cores through mma.sync.m16n8k16 (bf16 operands, float32
@@ -118,10 +140,11 @@ constexpr size_t smem_floats() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int hq,
-                       int hkv, int lq, int lk, int causal, float scale,
-                       Strides st) {
+flash_attention_f32_first_kernel(const T* __restrict__ q,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v, T* __restrict__ out,
+                                 int hq, int hkv, int lq, int lk, int causal,
+                                 float scale, Strides st) {
   constexpr int kDc = D / 8;  // accumulator columns a thread owns
   constexpr int qp = D + 1;
   constexpr int pp = kBK + 1;
@@ -243,16 +266,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           int n_batch, int hq, int hkv, int lq, int lk, int causal,
-           float scale, const Strides& st, cudaStream_t stream) {
+int launch_first(const void* q, const void* k, const void* v, void* out,
+                 int n_batch, int hq, int hkv, int lq, int lk, int causal,
+                 float scale, const Strides& st, cudaStream_t stream) {
   constexpr size_t bytes = smem_floats<D>() * sizeof(float);
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_f32_first_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid((lq + kBQ - 1) / kBQ, n_batch * hq);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_f32_first_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, lq, lk,
       causal, scale, st);
@@ -577,36 +600,295 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 to the FMA kernel, bfloat16 to the tensor-core kernel
-template <typename T, int D>
-int launch_for(const void* q, const void* k, const void* v, void* out,
-               int n_batch, int hq, int hkv, int lq, int lk, int causal,
-               float scale, const Strides& st, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
-    return launch<float, D>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
-                            scale, st, stream);
-  else
-    return launch_bf16<D>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
-                          scale, st, stream);
+// ---------------------------------------------------------------------------
+// float32: FMA kernel, register tiles fed by float4 shared reads
+// ---------------------------------------------------------------------------
+
+constexpr int kF32BQ = 64;             // queries per block
+constexpr int kF32BK = 64;             // keys per K/V tile
+constexpr int kF32Threads = 128;       // 8 row groups x 16 lanes
+constexpr int kF32Rows = kF32BQ / 8;   // query rows a thread owns
+constexpr int kF32Keys = kF32BK / 16;  // keys a thread scores in a tile
+
+// The Q tile, one K and one V tile (D floats a row) and the weights.
+__host__ __device__ constexpr int f32_smem_bytes(int d) {
+  return static_cast<int>(sizeof(float)) *
+         (kF32BQ * d + 2 * kF32BK * d + kF32BQ * kF32BK);
 }
 
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out,
-             int n_batch, int hq, int hkv, int lq, int lk, int causal,
-             float scale, const Strides& st, cudaStream_t s) {
+// Float offset of 16-byte chunk `ch` of row `r` in a tile of `w` floats a
+// row whose chunks are permuted by the row's low 3 bits: the 8 rows at one
+// chunk index land on 8 distinct groups of 4 banks.
+__device__ __forceinline__ int swizzled(int r, int ch, int w) {
+  return r * w + ((ch ^ (r & 7)) << 2);
+}
+
+// Copy kRows rows from row0 of one head ([L, D] with row stride
+// `row_stride` elements) into a shared tile of D floats a row, swizzled or
+// plain; rows at or past `limit` are zero-filled.
+template <int D, int kRows, bool kSwizzle>
+__device__ __forceinline__ void copy_rows_f32(float* dst, const float* src,
+                                              long long row_stride, int row0,
+                                              int limit) {
+  constexpr int nv = D / 4;  // 16-byte chunks per row
+  static_assert(kRows * nv % kF32Threads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < kRows * nv / kF32Threads; ++n) {
+    const int i = threadIdx.x + n * kF32Threads;
+    const int r = i / nv;
+    const int ch = i - r * nv;
+    const bool live = row0 + r < limit;
+    const float* g = live ? src + (row0 + r) * row_stride + 4 * ch : src;
+    cp_async16(dst + (kSwizzle ? swizzled(r, ch, D) : r * D + 4 * ch), g,
+               live);
+  }
+}
+
+// 2^x, flushing results below 2^-126 to 0 (a weight that small adds nothing
+// to a sum whose largest term is 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float part(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float p, const float4& x) {
+  acc.x = fmaf(p, x.x, acc.x);
+  acc.y = fmaf(p, x.y, acc.y);
+  acc.z = fmaf(p, x.z, acc.z);
+  acc.w = fmaf(p, x.w, acc.w);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int hq, int hkv, int lq, int lk, int causal,
+                       float scale, Strides st) {
+  constexpr int kChunks = D / 4;            // 16-byte chunks of a row
+  constexpr int kOut = (kChunks + 15) / 16;  // O chunks a lane owns, at most
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qs = f32_smem;          // [BQ][D], swizzled
+  float* ks = qs + kF32BQ * D;   // [BK][D], swizzled
+  float* vs = ks + kF32BK * D;   // [BK][D]
+  float* ps = vs + kF32BK * D;   // [BQ][BK], chunks permuted by row parity
+
+  // blocks go out x fastest: every head's last query tile (the longest
+  // causal rows) first, then the tile before it, and so on
+  const int bh = blockIdx.x;
+  const int b = bh / hq;
+  const int h = bh - b * hq;
+  const int g = h / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BQ;
+  const int ry = threadIdx.x >> 4;  // rows ry + 8 i of the tile
+  const int kx = threadIdx.x & 15;  // keys kx + 16 j, O chunks kx + 16 c
+  const int offset = lk - lq;
+  const float scale_log2 = scale * kLog2e;  // scores in units of log2
+
+  const float* qh = q + b * st.q_b + h * st.q_h;
+  const float* kh = k + b * st.k_b + g * st.k_h;
+  const float* vh = v + b * st.v_b + g * st.v_h;
+
+  int k_end = lk;
+  if (causal) k_end = min(lk, min(q0 + kF32BQ, lq) + offset);
+  const int n_tiles = k_end > 0 ? (k_end + kF32BK - 1) / kF32BK : 0;
+
+  // one K and one V buffer, each copy in flight while the other product
+  // runs: V(t) during S(t), K(t + 1) during P V(t); one commit group each
+  auto fetch_k = [&](int t) {
+    if (t < n_tiles)
+      copy_rows_f32<D, kF32BK, true>(ks, kh, st.k_l, t * kF32BK, lk);
+    cp_async_commit();
+  };
+  auto fetch_v = [&](int t) {
+    copy_rows_f32<D, kF32BK, false>(vs, vh, st.v_l, t * kF32BK, lk);
+    cp_async_commit();
+  };
+  copy_rows_f32<D, kF32BQ, true>(qs, qh, st.q_l, q0, lq);
+  fetch_k(0);
+
+  float4 acc[kF32Rows][kOut];
+  float m[kF32Rows], l[kF32Rows];  // l: this lane's part of the row sum
+#pragma unroll
+  for (int i = 0; i < kF32Rows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int pswz = (ry & 1) << 2;  // the weights' chunk permutation
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kF32BK;
+    cp_async_wait<0>();  // K(t) (and Q) landed for this thread's copies
+    __syncthreads();     // ... for every thread's; P V(t - 1) is done
+    fetch_v(t);
+
+    // S = Q K^T: 8 query rows x 4 keys a thread, float4 along D; the 8
+    // rows share their swizzle (ry & 7), the 4 keys theirs (kx & 7)
+    float s[kF32Rows][kF32Keys];
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+      for (int j = 0; j < kF32Keys; ++j) s[i][j] = 0.0f;
+#pragma unroll 1
+    for (int ch = 0; ch < kChunks; ++ch) {
+      float4 kv[kF32Keys];
+#pragma unroll
+      for (int j = 0; j < kF32Keys; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(
+            ks + swizzled(kx + 16 * j, ch, D));
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            qs + swizzled(ry + 8 * i, ch, D));
+#pragma unroll
+        for (int j = 0; j < kF32Keys; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+
+    // scale, mask (only a tile that crosses the causal frontier or lk),
+    // online softmax over the 16 lanes of each row; weights to shared
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i)
+#pragma unroll
+      for (int j = 0; j < kF32Keys; ++j) s[i][j] *= scale_log2;
+    if (k0 + kF32BK > lk || (causal && k0 + kF32BK - 1 > q0 + offset)) {
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i) {
+        const int qpos = q0 + ry + 8 * i + offset;
+#pragma unroll
+        for (int j = 0; j < kF32Keys; ++j) {
+          const int kpos = k0 + kx + 16 * j;
+          if (kpos >= lk || (causal && kpos > qpos)) s[i][j] = kNegInf;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kF32Rows; ++i) {
+      const int row = ry + 8 * i;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kF32Keys; ++j) mt = fmaxf(mt, s[i][j]);
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float m_new = fmaxf(m[i], mt);
+      const float alpha = exp2_ftz(m[i] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kF32Keys; ++j) {
+        // the weight of a masked score is zeroed after the exp
+        const float p =
+            s[i][j] == kNegInf ? 0.0f : exp2_ftz(s[i][j] - m_new);
+        ps[row * kF32BK + ((((kx >> 2) + 4 * j) ^ pswz) << 2) + (kx & 3)] =
+            p;
+        rs += p;
+      }
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+      if (alpha != 1.0f) {
+#pragma unroll
+        for (int c = 0; c < kOut; ++c) {
+          acc[i][c].x *= alpha;
+          acc[i][c].y *= alpha;
+          acc[i][c].z *= alpha;
+          acc[i][c].w *= alpha;
+        }
+      }
+    }
+    cp_async_wait<0>();  // V(t) landed for this thread's copies
+    __syncthreads();     // ... for every thread's; S(t) is done with K
+    fetch_k(t + 1);
+
+    // O += P V: 4 keys' weights of a row per float4, V rows along D
+#pragma unroll 2
+    for (int t4 = 0; t4 < kF32BK; t4 += 4) {
+      float4 pv[kF32Rows];
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            ps + (ry + 8 * i) * kF32BK + (((t4 >> 2) ^ pswz) << 2));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 vv[kOut];
+#pragma unroll
+        for (int c = 0; c < kOut; ++c)
+          if (kx + 16 * c < kChunks)
+            vv[c] = *reinterpret_cast<const float4*>(
+                vs + (t4 + e) * D + 4 * (kx + 16 * c));
+#pragma unroll
+        for (int i = 0; i < kF32Rows; ++i) {
+          const float p = part(pv[i], e);
+#pragma unroll
+          for (int c = 0; c < kOut; ++c)
+            if (kx + 16 * c < kChunks) fma4(acc[i][c], p, vv[c]);
+        }
+      }
+    }
+  }
+
+  // row sums over the 16 lanes of each row; divide by 1 where the sum is 0
+  float* oh = out + (static_cast<long long>(bh) * lq) * D;
+#pragma unroll
+  for (int i = 0; i < kF32Rows; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const int row = q0 + ry + 8 * i;
+    if (row >= lq) continue;
+    const float div = sum == 0.0f ? 1.0f : sum;
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) {
+      if (kx + 16 * c >= kChunks) continue;
+      const float4 a = acc[i][c];
+      *reinterpret_cast<float4*>(oh + static_cast<long long>(row) * D +
+                                 4 * (kx + 16 * c)) =
+          make_float4(a.x / div, a.y / div, a.z / div, a.w / div);
+    }
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               int n_batch, int hq, int hkv, int lq, int lk, int causal,
+               float scale, const Strides& st, cudaStream_t stream) {
+  constexpr int bytes = f32_smem_bytes(D);
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(n_batch * hq, (lq + kF32BQ - 1) / kF32BQ);
+  flash_attention_kernel<D><<<grid, kF32Threads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, lq,
+      lk, causal, scale, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, D>{}) for the head dims the kernels take
+template <typename F>
+int with_head_dim(int d, F&& f) {
   switch (d) {
     case 32:
-      return launch_for<T, 32>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
-                           scale, st, s);
+      return f(std::integral_constant<int, 32>{});
     case 64:
-      return launch_for<T, 64>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
-                           scale, st, s);
+      return f(std::integral_constant<int, 64>{});
     case 96:
-      return launch_for<T, 96>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
-                           scale, st, s);
+      return f(std::integral_constant<int, 96>{});
     case 128:
-      return launch_for<T, 128>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
-                            scale, st, s);
+      return f(std::integral_constant<int, 128>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -614,26 +896,69 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; d in {32, 64, 96, 128}. q is [B, Hq, Lq, D]
-// and k, v are [B, Hkv, Lk, D], each given by its (b, h, l) strides in
-// elements with D contiguous; out is contiguous [B, Hq, Lq, D]. Returns a
+// dtype: 0 float32 (flash_attention_kernel), 1 bfloat16
+// (flash_attention_bf16_kernel); d in {32, 64, 96, 128}. q is
+// [B, Hq, Lq, D] and k, v are [B, Hkv, Lk, D], each given by its (b, h, l)
+// strides in elements with D contiguous, rows starting on 16 bytes; out is
+// contiguous [B, Hq, Lq, D]. block_q, block_k and smem_bytes are the
+// caller's float32 plan: a float32 launch whose numbers differ from the
+// kernel's layout is refused; a bfloat16 launch takes 0 for each. Returns a
 // cudaError_t code (0 on success).
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* out,
     int n_batch, int hq, int hkv, int lq, int lk, int d, int causal,
     float scale, long long q_b, long long q_h, long long q_l, long long k_b,
     long long k_h, long long k_l, long long v_b, long long v_h,
-    long long v_l, void* stream) {
+    long long v_l, int block_q, int block_k, int smem_bytes, void* stream) {
+  const bool f32 = dtype == 0;
+  const bool planned = f32 ? block_q == kF32BQ && block_k == kF32BK &&
+                                 smem_bytes == f32_smem_bytes(d)
+                           : block_q == 0 && block_k == 0 && smem_bytes == 0;
+  if ((dtype != 0 && dtype != 1) || !planned)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_batch <= 0 || hq <= 0 || lq <= 0) return 0;
   const Strides st{q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(d, q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
-                           scale, st, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(d, q, k, v, out, n_batch, hq, hkv, lq, lk,
-                                   causal, scale, st, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return f32 ? launch_f32<D>(q, k, v, out, n_batch, hq, hkv, lq, lk, causal,
+                               scale, st, s)
+               : launch_bf16<D>(q, k, v, out, n_batch, hq, hkv, lq, lk,
+                                causal, scale, st, s);
+  });
+}
+
+// The first float32 version (flash_attention_f32_first_kernel), same
+// operands as a float32 flash_attention_launch, no plan.
+extern "C" int flash_attention_f32_first_launch(
+    const void* q, const void* k, const void* v, void* out, int n_batch,
+    int hq, int hkv, int lq, int lk, int d, int causal, float scale,
+    long long q_b, long long q_h, long long q_l, long long k_b, long long k_h,
+    long long k_l, long long v_b, long long v_h, long long v_l,
+    void* stream) {
+  if (n_batch <= 0 || hq <= 0 || lq <= 0) return 0;
+  const Strides st{q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return launch_first<float, D>(q, k, v, out, n_batch, hq, hkv, lq, lk,
+                                  causal, scale, st, s);
+  });
+}
+
+// Resident blocks per SM of flash_attention_kernel at head dim d, from the
+// occupancy calculator, into *out.
+extern "C" int flash_attention_f32_blocks_per_sm(int d, int* out) {
+  return with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, f32_smem_bytes(D));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, flash_attention_kernel<D>, kF32Threads, f32_smem_bytes(D));
+    return static_cast<int>(err);
+  });
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -273,6 +273,68 @@ def test_build_sources_exist():
         assert path.parent == build.build_dir() and path.suffix == ".so"
 
 
+# (B, Hq, Hkv, Lq, Lk, D): the serving shapes, a ragged Lq, Lq < Lk, Lq >
+# Lk (rows that see no key), L < 16, Lk < 16 < Lq, and one query
+PLAN_CASES = [
+    (2, 24, 8, 512, 512, 128), (2, 24, 8, 2048, 2048, 128),
+    (1, 24, 8, 100, 512, 128), (2, 8, 1, 200, 333, 96),
+    (1, 2, 1, 100, 40, 64), (1, 3, 1, 9, 9, 128), (1, 16, 2, 5, 70, 64),
+    (3, 4, 2, 70, 13, 32), (3, 5, 5, 1, 1, 128)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", PLAN_CASES)
+def test_flash_f32_plan_covers_every_tile_longest_first(b, hq, hkv, lq, lk,
+                                                        d):
+    """The float32 plan's blocks cover every (b * Hq + h, query tile) once;
+    in launch order the key tiles they walk never grow (every head's
+    longest causal tile first); each walks exactly the key tiles that hold
+    a key visible to one of its rows, and a bidirectional block all of Lk."""
+    plan = fa.flash_f32_plan(b, hq, hkv, lq, lk, d)
+    assert plan.q_tiles == -(-lq // fa.F32_BLOCK_Q)
+    assert plan.grid == (b * hq, plan.q_tiles)
+    assert plan.blocks == b * hq * plan.q_tiles
+    order = [plan.block(i) for i in range(plan.blocks)]
+    assert sorted(order) == [(bh, t) for bh in range(b * hq)
+                             for t in range(plan.q_tiles)]
+    walks = [plan.key_tiles(t, True) for _, t in order]
+    assert walks == sorted(walks, reverse=True)
+    for t in range(plan.q_tiles):
+        rows = range(t * plan.block_q, min((t + 1) * plan.block_q, lq))
+        visible = max(min(lk, r + lk - lq + 1) for r in rows)
+        assert plan.key_tiles(t, True) == -(-max(visible, 0)
+                                            // plan.block_k)
+        assert plan.key_tiles(t, False) == -(-lk // plan.block_k)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_f32_plan_shared_memory(d):
+    """At every head dim a block's shared bytes stay within what a block
+    may use (227 KB) and two blocks (8 warps) fit on an SM."""
+    plan = fa.flash_f32_plan(2, 24, 8, 512, 512, d)
+    assert plan.smem_bytes == fa.f32_smem_bytes(d)
+    assert plan.smem_bytes <= fa.MAX_SMEM_BLOCK
+    assert 2 * (plan.smem_bytes + fa.SMEM_RESERVED) <= fa.SMEM_PER_SM
+    assert plan.blocks_per_sm >= 2
+    assert plan.threads * plan.blocks_per_sm >= 8 * 32
+    assert plan.block_q % 8 == 0 and plan.block_k % 16 == 0
+
+
+def test_flash_f32_plan_refuses_and_first_kernel_needs_cuda():
+    """The plan refuses a head dim the kernels lack and an Hq that is not
+    a multiple of Hkv; the first float32 kernel's launcher, like the
+    kernels', refuses CPU tensors, and counts nothing."""
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_f32_plan(1, 4, 2, 8, 8, 48)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_f32_plan(1, 6, 4, 8, 8, 64)
+    q, k, v = (torch.as_tensor(a) for a in _flash_inputs(1, 1, 4, 2, 8, 8,
+                                                         32))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._flash_attention_f32_first_cuda(q, k, v)
+    assert ops.launch_counts() == before
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device, or a skip where there is none."""
@@ -315,7 +377,19 @@ def test_cuda_flash_matches_plain(cuda_device, b, hq, hkv, lq, lk, d, causal,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-# sha256 of the float32 kernel's output bytes at seeded inputs, as the
+def _digest(out) -> str:
+    """sha256 of an output's values as float32 bytes."""
+    import hashlib
+
+    return hashlib.sha256(out.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _cuda_flash_inputs(device, b, hq, hkv, lq, lk, d, dtype="float32"):
+    return (torch.as_tensor(a, device=device).to(getattr(torch, dtype))
+            for a in _flash_inputs(lq + lk, b, hq, hkv, lq, lk, d))
+
+
+# sha256 of the first float32 kernel's output bytes at seeded inputs, as the
 # kernel of the previous release (before the bfloat16 kernel was added)
 # computed them on an H100 (sm_90a)
 FLASH_F32_DIGESTS = {
@@ -334,21 +408,104 @@ FLASH_F32_DIGESTS = {
 @pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", FLASH_CASES)
 def test_cuda_flash_float32_is_unchanged(cuda_device, b, hq, hkv, lq, lk, d,
                                          causal):
-    """The float32 route launches the float32 FMA kernel, whose output is
-    bit for bit what it was before the bfloat16 kernel existed."""
-    import hashlib
+    """The first float32 kernel, kept off the path, is bit for bit what it
+    was before the bfloat16 kernel existed, and counts no launch."""
+    q, k, v = _cuda_flash_inputs(cuda_device, b, hq, hkv, lq, lk, d)
+    before = ops.launch_counts()
+    out = fa._flash_attention_f32_first_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+    digest = _digest(out)
+    assert digest == FLASH_F32_DIGESTS[(b, hq, hkv, lq, lk, d, causal)], \
+        digest
 
-    q, k, v = (torch.as_tensor(a, device=cuda_device)
-               for a in _flash_inputs(lq + lk, b, hq, hkv, lq, lk, d))
+
+# sha256 of the float32 kernel's output bytes at seeded inputs, as the
+# kernel with register tiles (8 query rows a thread, 64-key tiles) computed
+# them on an H100 (sm_90a)
+FLASH_F32_NEW_DIGESTS = {
+    (1, 4, 4, 64, 64, 64, True):
+        "e8ee43b36c6cca25a2186fd9c6e08ce91f5a3019fa65b1978a11b23c3d6700b3",
+    (2, 8, 2, 96, 160, 64, True):
+        "45ad92de6eed9c2cd18105f272a78860b49e1cbbcbfbd17345229eb71eb7f0d8",
+    (1, 6, 3, 33, 57, 32, False):
+        "3affced5aa7f330453253f6b8404e8504dddd4f0352971663dd60a44b5aeb046",
+    (1, 2, 1, 128, 128, 128, True):
+        "c8304eec9a2c00c9282fdcb26975d936b6e1e8f9d59647e70a545b1a76924dd4",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", FLASH_CASES)
+def test_cuda_flash_float32_digests(cuda_device, b, hq, hkv, lq, lk, d,
+                                    causal):
+    """The float32 route launches the float32 kernel (one count, none for
+    bfloat16), whose output is bit for bit the recorded one."""
+    q, k, v = _cuda_flash_inputs(cuda_device, b, hq, hkv, lq, lk, d)
     before = ops.launch_counts()
     out = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == \
-        before["flash_attention"] + 1
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bf16"] == before["flash_attention_bf16"]
+    digest = _digest(out)
+    assert digest == FLASH_F32_NEW_DIGESTS[(b, hq, hkv, lq, lk, d, causal)], \
+        digest
+
+
+# sha256 of the bfloat16 kernel's output values (as float32 bytes) at the
+# seeded inputs rounded to bfloat16, recorded on an H100 (sm_90a) from the
+# bfloat16 kernel as it was before the float32 kernel's redesign
+FLASH_BF16_DIGESTS = {
+    (1, 4, 4, 64, 64, 64, True):
+        "dbb0340f8b7831772a074498eef4cc9865c65667a828b0b5367478cd522d0e99",
+    (2, 8, 2, 96, 160, 64, True):
+        "7e631eb74ef32e749ef60267099c26db311c226e2d0cfa8691b293a52e20058f",
+    (1, 6, 3, 33, 57, 32, False):
+        "58961abd5b02dd1744b0684ca19b2f5fb9ef110b1a4ad739755f2051cf01f27d",
+    (1, 2, 1, 128, 128, 128, True):
+        "baefdc87c6059a14649ee9b1479f909910f40e4522ca78ca59dfbff8f3aae90f",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", FLASH_CASES)
+def test_cuda_flash_bf16_is_unchanged(cuda_device, b, hq, hkv, lq, lk, d,
+                                      causal):
+    """The bfloat16 route launches the tensor-core kernel, bit for bit as
+    it was before the float32 kernel was redesigned."""
+    q, k, v = _cuda_flash_inputs(cuda_device, b, hq, hkv, lq, lk, d,
+                                 "bfloat16")
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention_bf16"] == \
-        before["flash_attention_bf16"]
-    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
-    assert digest == FLASH_F32_DIGESTS[(b, hq, hkv, lq, lk, d, causal)]
+        before["flash_attention_bf16"] + 1
+    digest = _digest(out)
+    assert digest == FLASH_BF16_DIGESTS[(b, hq, hkv, lq, lk, d, causal)], \
+        digest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", FLASH_CUDA_CASES)
+def test_cuda_flash_float32_matches_float64_reference(cuda_device, b, hq,
+                                                      hkv, lq, lk, d, causal):
+    """The float32 kernel and the first float32 kernel within float32's
+    2e-5 of the float64 reference; at the serving shape (B 2, Hq 24, Hkv 8,
+    L 512, D 128) the kernel at most twice as far from it as the plain
+    version."""
+    arrays = _flash_inputs(lq + lk, b, hq, hkv, lq, lk, d)
+    want = t_ref.flash_attention_reference(*arrays, causal)
+    q, k, v = (torch.as_tensor(a, device=cuda_device) for a in arrays)
+    dist = {}
+    for name, fn in (("kernel", fa.flash_attention_cuda),
+                     ("first", fa._flash_attention_f32_first_cuda),
+                     ("plain", fa.flash_attention_plain)):
+        got = fn(q, k, v, causal)
+        dist[name] = float(np.abs(got.double().cpu().numpy() - want).max())
+    assert dist["kernel"] <= 2e-5 and dist["first"] <= 2e-5, dist
+    if (b, hq, hkv, lq, lk, d) == (2, 24, 8, 512, 512, 128):
+        assert dist["kernel"] <= 2 * dist["plain"], dist
 
 
 # the card's decode shapes: the CPU cases, the engine's width at S 1024 and
