@@ -52,7 +52,15 @@ Phases — any failure raises and the script exits non-zero:
            mapping re-priced on the card equal to the numpy oracle at 1e-4;
            then the golden goodput scenario
            (orca, joint co-search, the fold on the card) against
-           tests/goldens/search_goldens.json;
+           tests/goldens/search_goldens.json; then the ``compare`` run:
+           the paper's baselines on the canonical scenario at
+           benchmarks/bench_compare.py's reduced budgets -- Gemini-style
+           (numpy oracle), MOHaM-style (its GA priced on the card through
+           the fused kernel, launches counted, no plain dispatch, its
+           winner re-priced on the card within 1e-4 of the oracle) and
+           SCAR-style on the Compass winner's hardware -- each with its
+           latency, energy, EDP, MC and EDP reduction by the Compass
+           ``explore`` result;
 4. serve   the serving path at the full width of llama3.2-3b (28 layers,
            seeded random float32 weights): ``ServingEngine`` serves 8
            requests (prompts of 64-512 tokens, 16 new tokens each) under
@@ -67,7 +75,18 @@ Phases — any failure raises and the script exits non-zero:
            512 tokens through the flash kernel (28 launches), its logits
            and caches against ``impl="eager"`` and against ``extend``;
            one more orca run with float32 weights over a bfloat16 cache
-           (decode takes a float32 q). Then llama3.2-3b in bfloat16
+           (decode takes a float32 q); then the paged ``AsyncLLMService``
+           (blocks of 16 tokens, full residency) on the same weights and
+           requests under ``IterationClock`` for each scheduler: its
+           admission log, batches and RequestTimings equal the plan bit
+           for bit, 28 decode-kernel launches per decode iteration and no
+           plain dispatch, and its greedy tokens the engine's run of the
+           same scheduler (a stream may part from it only at a
+           teacher-forced top-two gap under LOGIT_REL: the decode
+           kernel's split plan follows the batch); one orca run under
+           ``WallClock`` (wall, tokens / s, TTFT p50 / p99, the pools'
+           bytes) and the profiler's device time of the paged gather and
+           write-back per decode step. Then llama3.2-3b in bfloat16
            weights and cache: ``prefill`` of 2 x 2048 tokens through the
            bfloat16 flash kernel (28 launches) and eagerly, the kernel
            held to its plain version within 2e-2 of the largest value on
@@ -79,7 +98,9 @@ Phases — any failure raises and the script exits non-zero:
            seeded random float32 weights), after llama's weights are
            freed: its engine runs launch NO kernel (prompts go through
            the eager chunked SSD of ``extend``, decode through the
-           one-step recurrence, as in the JAX package); its ``prefill``
+           one-step recurrence, as in the JAX package), nor does one orca
+           run of the paged service, whose tokens equal the engine's
+           (its slot-state path); its ``prefill``
            goes through the SSD kernel (64 launches), each layer's SSD
            is held to the eager SSD within 1e-4 on the prefill's own
            activations, and its logits and states against
@@ -179,6 +200,8 @@ MAIN_POP, MAIN_GENS = 512, 16
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
 SERVE_CHUNK = 64
+SERVE_BLOCK = 16               # the paged service's block length
+SERVE_PERIOD_S = 0.05          # WallClock: seconds per arrival iteration
 BF16_PROMPT = 2048             # the bfloat16 prefill: 2 prompts of 2048
 LOGIT_REL = 1e-4               # teacher-forced logits: of the largest |logit|
 # A 64-layer random-weight Mamba-2 stack carries float32 rounding forward
@@ -993,10 +1016,11 @@ def phase_main(scenario, device) -> dict:
 
     check(timing.get_timing_backend(None).name == "fused",
           "the default backend is not fused")
-    runs = {}
+    runs, results = {}, {}
     for label, backend, kernel in (("fused", None, "mapping_eval_fused"),
                                    ("kernel", "kernel", "mapping_eval")):
         res, wall, stats = _explore_once(scenario, backend)
+        results[label] = res
         _path_ok(stats, kernel)
         score = float(res.bo.best_score)
         check(math.isfinite(score) and score > 0, f"best score {score}")
@@ -1037,7 +1061,128 @@ def phase_main(scenario, device) -> dict:
     emit({"phase": "golden", "case": "search_goodput_stream", "values": got,
           "rtol": golden["rtol"], "launches": stats["launches"],
           "launches_by_route": _me_routes()})
+    runs["compare"] = _compare(scenario, results["fused"], device)
     return runs
+
+
+def _moham_oracle_gap(scenario, moh, device) -> float:
+    """MOHaM's winner re-priced on the card by the population evaluator
+    against the numpy oracle: the largest relative gap of its per-batch
+    latency and energy, and of its score."""
+    from repro_torch.core.baselines import _evaluate_on_test
+    from repro_torch.core.compass import scenario_score
+    from repro_torch.core.evaluator import CostTables
+    from repro_torch.core.torch_evaluator import GroupPopulationEvaluator
+    from repro_torch.core.workload import build_execution_graph
+
+    hw = moh.hardware
+    _, _, oracle_lat = _evaluate_on_test(scenario, hw, moh.encodings, 1)
+    worst, lat, en, b_lat = 0.0, 0.0, 0.0, []
+    for batch, want in zip(scenario.batches(hw), oracle_lat):
+        g = build_execution_graph(scenario.spec, batch, 1,
+                                  tp=hw.tensor_parallel,
+                                  n_blocks=scenario.n_blocks)
+        ev = GroupPopulationEvaluator([g], [CostTables.build(g, hw)], hw,
+                                      device=device)
+        b_l, b_e = ev.evaluate_population([moh.encodings[(g.rows, g.n_cols)]])
+        worst = max(worst, abs(b_l[0, 0] - want) / want)
+        lat, en = lat + b_l[0, 0], en + b_e[0, 0]
+        b_lat.append(b_l[0, 0])
+    worst = max(worst, abs(en - moh.energy_j) / moh.energy_j)
+    score = scenario_score(scenario, "edp_mc", lat, en, moh.mc_total, b_lat)
+    return max(worst, abs(score - moh.score) / abs(moh.score))
+
+
+def _scar_on(scenario, hw):
+    """SCAR-style greedy mappings of every batch of the scenario on ``hw``
+    (the Compass winner), priced by the numpy oracle."""
+    from repro_torch.core.baselines import scar_style_mapping
+    from repro_torch.core.compass import scenario_score
+    from repro_torch.core.evaluator import CostTables, evaluate
+    from repro_torch.core.hardware import monetary_cost
+    from repro_torch.core.workload import build_execution_graph
+
+    lat = en = 0.0
+    b_lat = []
+    for batch in scenario.batches(hw):
+        g = build_execution_graph(scenario.spec, batch,
+                                  scenario.micro_batch(hw, batch),
+                                  tp=hw.tensor_parallel,
+                                  n_blocks=scenario.n_blocks)
+        tables = CostTables.build(g, hw)
+        r = evaluate(g, scar_style_mapping(g, hw, tables), hw, tables)
+        lat, en = lat + r.latency_s, en + r.energy_j
+        b_lat.append(r.latency_s)
+    mc = monetary_cost(hw)["mc_total"]
+    return {"latency_s": lat, "energy_j": en, "mc_total": mc,
+            "score": scenario_score(scenario, "edp_mc", lat, en, mc, b_lat)}
+
+
+def _compare(scenario, compass, device) -> dict:
+    """The paper's baselines on the canonical scenario at
+    benchmarks/bench_compare.py's reduced budgets: Gemini-style (numpy
+    oracle), MOHaM-style (its GA priced by the population evaluator on the
+    card, through the fused kernel: launches counted, no plain dispatch,
+    its winner re-priced on the card within 1e-4 of the oracle) and
+    SCAR-style on the Compass winner's hardware; each one's EDP reduction
+    by the Compass ``explore`` result (1 - Compass EDP / its EDP)."""
+    import torch
+
+    from repro_torch.core import timing
+    from repro_torch.core.baselines import (
+        gemini_style_search,
+        moham_style_search,
+    )
+    from repro_torch.core.ga import GAConfig
+
+    def row(lat, en, mc, score, wall):
+        edp = lat * en
+        return {"latency_s": lat, "energy_j": en, "edp": edp,
+                "mc_total": mc, "score": score, "wall_s": wall,
+                "edp_reduction": 1.0 - c_edp / edp,
+                "edp_mc_reduction": 1.0 - c_edp * c.mc_total / (edp * mc)}
+
+    c = compass.mapping
+    c_edp = c.latency_s * c.energy_j
+    rec = {"phase": "main", "run": "compare",
+           "compass": {"latency_s": c.latency_s, "energy_j": c.energy_j,
+                       "edp": c_edp, "mc_total": c.mc_total,
+                       "score": c.score}}
+    t0 = time.perf_counter()
+    gem = gemini_style_search(scenario, sa_iters=60, grid_subsample=4)
+    rec["gemini"] = row(gem.latency_s, gem.energy_j, gem.mc_total,
+                        gem.score, time.perf_counter() - t0)
+    timing.clear_timing_backend_stats()            # counts to 0 just before
+    t0 = time.perf_counter()
+    moh = moham_style_search(scenario, generations=3, population=6,
+                             ga_config=GAConfig(population=8, generations=3))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = timing.timing_backend_stats()          # read just after
+    stats["routes"] = _me_routes()
+    _path_ok(stats, "mapping_eval_fused")
+    gap = _moham_oracle_gap(scenario, moh, device)
+    check(gap <= 1e-4, f"MOHaM: card vs numpy oracle gap {gap}")
+    rec["moham"] = {**row(moh.latency_s, moh.energy_j, moh.mc_total,
+                          moh.score, wall),
+                    "launches": stats["launches"]["mapping_eval_fused"],
+                    "launches_by_route": {
+                        r: stats["routes"][f"mapping_eval_fused:{r}"]
+                        for r in ("shared", "global")},
+                    "dispatches": stats["dispatches"], "oracle_gap": gap}
+    t0 = time.perf_counter()
+    scar = _scar_on(scenario, compass.hardware)
+    rec["scar"] = row(scar["latency_s"], scar["energy_j"], scar["mc_total"],
+                      scar["score"], time.perf_counter() - t0)
+    for name in ("gemini", "moham", "scar"):
+        r = rec[name]
+        check(all(math.isfinite(r[k]) and r[k] > 0
+                  for k in ("latency_s", "energy_j", "mc_total")),
+              f"{name}: {r}")
+    rec["seconds"] = sum(rec[name]["wall_s"]
+                         for name in ("gemini", "moham", "scar"))
+    emit(rec)
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -1059,6 +1204,13 @@ def _serve_requests(vocab: int):
             for i, n in enumerate(lens)]
 
 
+def _sched(name: str):
+    from repro_torch.serving import SCHEDULERS
+
+    return (SCHEDULERS[name](chunk=SERVE_CHUNK)
+            if name == "chunked_prefill" else SCHEDULERS[name]())
+
+
 def _decode_dispatches(cfg, n_dec: int) -> dict:
     """The kernel dispatches an engine run must make: one decode-attention
     launch per attention layer and decode iteration. Prompts go through
@@ -1076,11 +1228,9 @@ def _engine_run(params, cfg, arch: str, sched_name: str, device,
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.serving import SCHEDULERS
     from repro_torch.serving.engine import ServingEngine, summarize
 
-    sched = (SCHEDULERS[sched_name](chunk=SERVE_CHUNK)
-             if sched_name == "chunked_prefill" else SCHEDULERS[sched_name]())
+    sched = _sched(sched_name)
     weights = next(params.parameters()).dtype
     cache_dtype = cache_dtype or weights
     eng = ServingEngine(params, cfg, max_batch=SERVE_REQUESTS,
@@ -1354,11 +1504,11 @@ def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
     emit({"phase": "serve", "run": "init", "arch": arch,
           "params": n_params, "bytes": 4 * n_params,
           "seconds": time.perf_counter() - t0})
-    runs, streams, orca = {}, None, None
+    runs, by_sched = {}, {}
     for name in ("vllm", "orca", "chunked_prefill"):
-        runs[name], got = _engine_run(params, cfg, arch, name, device)
-        streams = streams or got
-        orca = got if name == "orca" else orca
+        runs[name], by_sched[name] = _engine_run(params, cfg, arch, name,
+                                                 device)
+    streams, orca = by_sched["vllm"], by_sched["orca"]
     if kernel == "flash_attention":
         # float32 weights over a bfloat16 cache: decode takes a float32 q
         runs["orca_bf16_cache"], got = _engine_run(
@@ -1367,13 +1517,270 @@ def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
         emit({"phase": "serve", "run": "bf16_cache_vs_f32_cache",
               "arch": arch, "requests": len(got),
               "same_tokens_as_float32_cache": same})
+    service = _service_checks(params, cfg, arch, by_sched, device,
+                              full=kernel == "flash_attention")
     profile = _engine_profile(params, cfg, arch, device)
     pre = _prefill_check(params, cfg, arch, kernel, device)
     replay = _replay(params, cfg, arch, streams, device, pre["tol"])
     del params
     torch.cuda.empty_cache()
-    return {"engine": runs, "profile": profile, "replay": replay,
-            "prefill": pre}
+    return {"engine": runs, "service": service, "profile": profile,
+            "replay": replay, "prefill": pre}
+
+
+def _service_run(params, cfg, arch: str, sched_name: str, device,
+                 clock=None) -> tuple:
+    """One ``AsyncLLMService`` serve of the phase's requests (float32 paged
+    pools of SERVE_BLOCK-token blocks, full residency) under ``clock``
+    (``IterationClock`` by default). Every request must finish with
+    SERVE_NEW tokens, and the only dispatches are the decode kernel's, one
+    per attention layer and decode iteration. Returns (result, service,
+    record)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import AsyncLLMService, ServiceConfig
+
+    svc = AsyncLLMService(params, cfg, ServiceConfig(
+        max_batch=SERVE_REQUESTS, max_len=SERVE_MAX_LEN,
+        block_len=SERVE_BLOCK), clock=clock, device=device)
+    reqs = _serve_requests(cfg.vocab)
+    torch.cuda.synchronize()
+    ops.clear_dispatch_stats()                     # counts to 0 just before
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svc.serve_sync(reqs, _sched(sched_name), stream_name="serve")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, disp = ops.launch_counts(), ops.dispatch_stats()  # just after
+    check(not res.truncated and len(res.finished) == SERVE_REQUESTS
+          and all(len(r.generated) == SERVE_NEW for r in res.finished),
+          f"service {arch} {sched_name}: {len(res.finished)} of "
+          f"{SERVE_REQUESTS} requests finished with {SERVE_NEW} tokens")
+    n_dec = sum(1 for st in res.stats if st.n_decode)
+    want = _decode_dispatches(cfg, n_dec)
+    check(disp == want and all(n == want.get(f"{k}:cuda", 0)
+                               for k, n in launches.items()),
+          f"service {arch} {sched_name}: launches {launches}, dispatches "
+          f"{disp}, expected {want} ({n_dec} decode iterations)")
+    out_tokens = sum(len(r.generated) for r in res.finished)
+    rec = {"phase": "serve", "run": "service", "arch": arch,
+           "scheduler": sched_name,
+           "clock": "wall" if clock is not None else "iteration",
+           "wall_s": wall, "tokens_per_s": out_tokens / wall,
+           "output_tokens": out_tokens, "iterations": len(res.stats),
+           "decode_iterations": n_dec, "launches": launches,
+           "dispatches": disp, "kv_resident_bytes": svc.kv.resident_bytes(),
+           "prefill_entrypoints": res.counters["prefill_entrypoints"],
+           "decode_entrypoints": res.counters["decode_entrypoints"]}
+    return res, svc, rec
+
+
+def _plan_parity(res, sched_name: str, vocab: int) -> None:
+    """The measured schedule equals the planner's bit for bit: the
+    admission log against ``plan_rollout``, and the batches, indices,
+    token counts and priced ``RequestTimings`` against ``rollout`` of the
+    same requests as a stream."""
+    import numpy as np
+
+    from repro_torch.core.streams import RequestStream, StreamRequest, rollout
+    from repro_torch.serving import ServeRequest
+    from repro_torch.serving.scheduler import plan_rollout
+
+    reqs = _serve_requests(vocab)
+    planned = []
+    for it, plan in plan_rollout(
+            [ServeRequest(r.rid, list(r.prompt), r.max_new_tokens,
+                          arrived_iter=r.arrived_iter) for r in reqs],
+            _sched(sched_name), SERVE_REQUESTS, 10_000):
+        planned += [(q.rid, q.slot, it) for q, _ in plan.prefill
+                    if q.prefilled == 0]
+    check(res.admissions == planned,
+          f"service {sched_name}: admissions {res.admissions} != {planned}")
+    stream = RequestStream.from_requests(
+        [StreamRequest(len(r.prompt), r.max_new_tokens, r.arrived_iter)
+         for r in reqs], name="serve")
+    ro = rollout(stream, _sched(sched_name), max_slots=SERVE_REQUESTS,
+                 max_iters=10_000)
+    got = res.rollout
+    check(got.batches == ro.batches
+          and all(np.array_equal(getattr(got, k), getattr(ro, k))
+                  for k in ("arrival_b", "first_b", "done_b",
+                            "n_new_tokens")),
+          f"service {sched_name}: measured rollout differs from the plan")
+    lat = np.linspace(0.01, 0.02, len(ro.batches))
+    planned_t, measured_t = ro.timings(lat), res.timings(lat)
+    check(all(np.array_equal(getattr(planned_t, k), getattr(measured_t, k))
+              for k in ("ttft_s", "tpot_s", "finished"))
+          and planned_t.makespan_s == measured_t.makespan_s,
+          f"service {sched_name}: RequestTimings differ from the plan")
+
+
+def _near_tie(params, cfg, prompt, prefix, pair, device) -> float:
+    """Teacher forcing through ``prefill`` and ``decode_step`` (the kernel
+    path at batch 1) up to the step after ``prefix``: that step's top-two
+    logit gap over the largest |logit|, checked to be a near tie (under
+    LOGIT_REL) between exactly the two tokens of ``pair``."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, torch.float32, device)
+    logits, cache = prefill(params, cfg, torch.as_tensor([prompt],
+                                                          device=device),
+                            cache, device=device)
+    for tok in prefix:
+        logits, cache = decode_step(params, cfg,
+                                    torch.as_tensor([tok], device=device),
+                                    cache, device=device)
+    top = torch.topk(logits[0], 2)
+    gap = float((top.values[0] - top.values[1]) / logits[0].abs().max())
+    check(gap <= LOGIT_REL and set(top.indices.tolist()) == set(pair),
+          f"service vs engine tokens {pair} differ at a top-two gap of "
+          f"{gap} of the largest logit (top two {top.indices.tolist()})")
+    return gap
+
+
+def _width_tie(params, cfg, prompt, prefix, pair, device) -> dict:
+    """For a model whose decode launches no kernel (Mamba-2): the prompt
+    through ``extend`` at batch 1, as the engine and the service both run
+    it, then ``prefix`` teacher-forced through ``decode_step`` at once at
+    batch 1 and at SERVE_REQUESTS (the engine's width; the row copied):
+    ``spread``, the largest gap of row 0's logits between the two widths
+    over the largest |logit| -- what the batch width alone changes, the
+    service decoding at its bucket and the engine at ``max_batch``.
+    At the step after ``prefix`` the top two tokens at the engine's width
+    must be exactly ``pair`` and their gap within SPREAD_FACTOR x
+    ``spread`` (which must not be 0)."""
+    import torch
+
+    from repro_torch.models import decode_step, extend, init_cache
+
+    n, w = len(prompt), SERVE_REQUESTS
+    toks = torch.zeros((1, 1 << max(0, n - 1).bit_length()),
+                       dtype=torch.int64, device=device)
+    toks[0, :n] = torch.as_tensor(prompt, device=device)
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, torch.float32, device)
+    logits, cache = extend(params, cfg, toks, cache, length=n, device=device)
+    caches = {1: cache, w: [{k: v.expand(w, *v.shape[1:]).clone()
+                             for k, v in layer.items()} for layer in cache]}
+    out = {1: logits, w: logits.expand(w, -1)}
+    spread = 0.0
+    for tok in prefix:
+        for b in (1, w):
+            out[b], caches[b] = decode_step(
+                params, cfg, torch.full((b,), tok, device=device), caches[b],
+                device=device)
+        spread = max(spread, float((out[1][0] - out[w][0]).abs().max()
+                                   / out[w][0].abs().max()))
+    top = {b: torch.topk(out[b][0], 2) for b in (1, w)}
+    gap = {b: float((t.values[0] - t.values[1]) / out[b][0].abs().max())
+           for b, t in top.items()}
+    rec = {"spread": spread, "rel_top2_gap": gap[w],
+           "rel_top2_gap_batch1": gap[1],
+           "top2": top[w].indices.tolist(),
+           "top2_batch1": top[1].indices.tolist()}
+    check(spread > 0 and gap[w] <= SPREAD_FACTOR * spread
+          and set(rec["top2"]) == set(pair),
+          f"service vs engine tokens {pair} differ where the batch width "
+          f"does not explain it: {rec}")
+    return rec
+
+
+def _gather_scatter_ms(svc, cfg, device, calls: int = 10) -> dict:
+    """Device time per decode step of the service's paged gather (every
+    block of SERVE_REQUESTS lanes' tables into the dense cache) and its
+    write-back, from ``torch.profiler``, on the service's own pools at
+    its decode bucket of SERVE_REQUESTS lanes."""
+    import torch
+
+    from repro_torch.models.paged import _scatter_decode, gather_paged_cache
+
+    kv = svc.kv
+    b, t = SERVE_REQUESTS, kv.blocks_per_seq
+    tables = torch.arange(1, 1 + b * t, dtype=torch.int32,
+                          device=device).reshape(b, t)
+    lens = torch.as_tensor([len(r.prompt) for r in _serve_requests(cfg.vocab)],
+                           dtype=torch.int32, device=device)
+    slots = torch.arange(b, dtype=torch.int32, device=device)
+    cache = gather_paged_cache(kv.pools, tables, lens, slots)
+
+    def gather():
+        for _ in range(calls):
+            gather_paged_cache(kv.pools, tables, lens, slots)
+
+    def scatter():
+        for _ in range(calls):
+            _scatter_decode(kv.pools, cache, tables, lens, slots,
+                            kv.block_len)
+
+    g, _ = _profiled(gather)
+    w, _ = _profiled(scatter)
+    moved = sum(v.numel() * v.element_size() for layer in cache
+                for k, v in layer.items() if k != "len")
+    return {"gather_device_ms_per_step": g["device_busy_ms"] / calls,
+            "scatter_device_ms_per_step": w["device_busy_ms"] / calls,
+            "gather_bytes_per_step": 2 * moved,
+            "gather_bound_ms": 1e3 * 2 * moved / HBM_BYTES_PER_S}
+
+
+def _service_checks(params, cfg, arch: str, engine: dict, device,
+                    full: bool) -> dict:
+    """The paged service on the phase's weights: under ``IterationClock``
+    (vllm, orca and chunked_prefill when ``full``, else orca) the measured
+    schedule equals the plan bit for bit and the greedy tokens equal the
+    engine's run of the same scheduler. The service decodes at its bucket,
+    the engine at ``max_batch``, so a stream may part from the engine's
+    only where that explains it: with ``full`` (attention), at a
+    teacher-forced near tie under LOGIT_REL (the decode kernel's split
+    plan follows the batch); otherwise (Mamba-2, no kernel: the float32
+    products' rounding follows the batch and 64 random layers amplify it)
+    at a gap within SPREAD_FACTOR x the logit spread that the batch width
+    alone opens (``_width_tie``). With ``full``, one orca run under
+    ``WallClock`` (wall, tokens / s, TTFT percentiles) and the device time
+    of the paged gather and write-back per decode step."""
+    import numpy as np
+
+    from repro_torch.serving import WallClock
+
+    t_start = time.perf_counter()
+    out = {}
+    for name in (("vllm", "orca", "chunked_prefill") if full else ("orca",)):
+        res, svc, rec = _service_run(params, cfg, arch, name, device)
+        del svc
+        _plan_parity(res, name, cfg.vocab)
+        got = {r.rid: r.generated for r in res.finished}
+        equal, ties = 0, []
+        for rid, (prompt, want) in sorted(engine[name].items()):
+            if got[rid] == want:
+                equal += 1
+                continue
+            j = next(i for i, (a, b) in enumerate(zip(got[rid], want))
+                     if a != b)
+            pair = (want[j], got[rid][j])
+            tie = ({"rel_top2_gap": _near_tie(params, cfg, prompt, want[:j],
+                                              pair, device)} if full
+                   else _width_tie(params, cfg, prompt, want[:j], pair,
+                                   device))
+            ties.append({"rid": rid, "step": j, **tie})
+        rec.update(plan_parity=True, equal_streams=equal, near_ties=ties)
+        emit(rec)
+        out[name] = rec
+    if full:
+        res, svc, rec = _service_run(params, cfg, arch, "orca", device,
+                                     clock=WallClock(SERVE_PERIOD_S))
+        ttft = res.wall_timings().ttft_s
+        rec.update(period_s=SERVE_PERIOD_S,
+                   ttft_p50_s=float(np.percentile(ttft, 50)),
+                   ttft_p99_s=float(np.percentile(ttft, 99)),
+                   **_gather_scatter_ms(svc, cfg, device))
+        del svc
+        emit(rec)
+        out["wall"] = rec
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "serve", "run": "service_seconds", "arch": arch,
+          "seconds": out["seconds"]})
+    return out
 
 
 def _bf16_layer_check(params, cfg, toks, device) -> dict:

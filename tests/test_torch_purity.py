@@ -28,6 +28,9 @@ def test_main_path_imports_no_jax_and_no_reference():
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.models.mamba2, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.core.baselines, repro_torch.core.frontier\n"
+        "import repro_torch.analysis.fuzz, repro_torch.serving.service\n"
+        "import repro_torch.models.paged\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(bad)\n"
