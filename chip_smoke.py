@@ -22,7 +22,8 @@ Phases — any failure raises and the script exits non-zero:
            kernels at the shapes of tests/test_kernels.py and at
            llama3.2-3b's (decode B 8, Hq 24, Hkv 8, D 128, S 1024, seeded
            lengths; flash B 2, L 512 and 2048 causal, and Lq 100 < Lk
-           512) and, for flash, at every D
+           512), at phi-3-vision-4.2b's (Hq = Hkv = 32, D 96: decode B 8,
+           S 1024; flash B 2, L 512 causal) and, for flash, at every D
            in {32, 64, 96, 128}, causal and bidirectional, ragged L,
            L < 16 and Hq / Hkv of 1, 3 and 8: 2e-5 in float32 (the
            float32 flash kernel and the first float32 flash kernel both),
@@ -60,7 +61,16 @@ Phases — any failure raises and the script exits non-zero:
            winner re-priced on the card within 1e-4 of the oracle) and
            SCAR-style on the Compass winner's hardware -- each with its
            latency, energy, EDP, MC and EDP reduction by the Compass
-           ``explore`` result;
+           ``explore`` result; then the fleet control plane over the
+           search (``fleet_planned``): benchmarks/bench_serving.py's
+           reduced fleet frontier -- at offered loads 0.5, 2 and 8
+           requests per second, ``plan_scale_out`` of a 1-replica fleet
+           (keep, re_search warm-started from the keep serve's search,
+           add_replica) whose replicas price every rollout by a goodput
+           mapping search (GA 16 x 6) through the fused kernel, every call
+           on the shared-row route and none plain; the best action, its
+           replicas, goodput per dollar and loads printed beside the JAX
+           package's CPU record in BENCH_serving.json;
 4. serve   the serving path at the full width of llama3.2-3b (28 layers,
            seeded random float32 weights): ``ServingEngine`` serves 8
            requests (prompts of 64-512 tokens, 16 new tokens each) under
@@ -86,7 +96,14 @@ Phases — any failure raises and the script exits non-zero:
            kernel's split plan follows the batch); one orca run under
            ``WallClock`` (wall, tokens / s, TTFT p50 / p99, the pools'
            bytes) and the profiler's device time of the paged gather and
-           write-back per decode step. Then llama3.2-3b in bfloat16
+           write-back per decode step; then the fleet control plane over
+           the service (``fleet_measured``): a 1-replica fleet of
+           ``MeasuredReplica``s (a fresh service per serve) on 8 requests,
+           two of them decode-resident, equal to a direct serve bit for
+           bit in schedule and priced timings, and a 2-replica round-robin
+           fleet serving each request once, each replica equal to a direct
+           serve of its sub-stream, 28 decode launches per decode
+           iteration throughout. Then llama3.2-3b in bfloat16
            weights and cache: ``prefill`` of 2 x 2048 tokens through the
            bfloat16 flash kernel (28 launches) and eagerly, the kernel
            held to its plain version within 2e-2 of the largest value on
@@ -105,7 +122,15 @@ Phases — any failure raises and the script exits non-zero:
            is held to the eager SSD within 1e-4 on the prefill's own
            activations, and its logits and states against
            ``impl="eager"`` and ``extend`` within SPREAD_FACTOR x the
-           rounding spread measured in the run (see SPREAD_FACTOR);
+           rounding spread measured in the run (see SPREAD_FACTOR). Last,
+           phi-3-vision-4.2b at full width (32 layers, D 96, Hq = Hkv =
+           32, seeded random float32 weights, its vision frontend a stub):
+           ``prefill`` of 2 x 512 seeded embeddings through
+           ``inputs_embeds`` (32 flash launches) and eagerly, logits and
+           caches within 1e-4 of the largest; 16 teacher-forced decode
+           steps from that cache (32 decode launches each) within 1e-4;
+           one orca engine run through the kernels and one eagerly, their
+           tokens equal or parted only at a near tie;
 5. times   CUDA-event times of each kernel, its plain version and, for the
            attention kernels, ``torch.nn.functional.scaled_dot_product_
            attention`` on the same inputs, beside the least time the card
@@ -117,11 +142,13 @@ Phases — any failure raises and the script exits non-zero:
            time per call from ``torch.profiler`` and ns per step, the
            wrapper's host time per call, the plan (pairs per block, tile,
            shared bytes) and the blocks per SM of the occupancy calculator;
-           decode at S in {1024, 8192} (with its split plan, its
+           decode at S in {1024, 8192} and at phi-3's D 96, rep 1,
+           S 1024 (with its split plan, its
            device time per call from ``torch.profiler`` -- split and
            combine kernels summed -- and its host time per call over
            back-to-back calls, and the same two for the library call),
-           flash at L in {512, 2048} and Lq 100 < Lk 512
+           flash at L in {512, 2048}, Lq 100 < Lk 512 and phi-3's
+           D 96, rep 1, L 512
            (float32 through the FMA kernel, in turns with the first float32
            kernel as well: first, new, new, first; bfloat16 through the
            tensor-core kernel; each kernel's device time per call from
@@ -197,6 +224,19 @@ SSD_PARITY = [SSD_MAIN, (1, 96, 2, 16, 8), (2, 70, 3, 8, 16),
 SSD_TIMES = [SSD_MAIN, (2, 4096, 80, 64, 128)]
 MAMBA_ARCH, MAMBA_LAYERS = "mamba2-2.7b", 64
 MAIN_POP, MAIN_GENS = 512, 16
+# the fleet frontier of benchmarks/bench_serving.py (fleet_frontier_record)
+# at the budgets of benchmarks/common.py (ga_config, fleet_budget): a
+# ShareGPT stream of 12 requests (warm fraction 0.25, at most 8 new tokens,
+# seed 0) over llama3.2-3b replicas of 2 slots on make_hardware(512, "L",
+# tensor_parallel=8) with alternating WS / OS chiplets, each serve priced
+# by a GA of 16 x 6 over 2 blocks; the SLOs at the 60th percentile of a
+# latency pre-search at the middle rate
+FLEET_RATES = (0.5, 2.0, 8.0)
+FLEET_REQUESTS, FLEET_NEW_CAP, FLEET_WARM = 12, 8, 0.25
+FLEET_SLOTS, FLEET_ITERS, FLEET_BLOCKS = 2, 2048, 2
+FLEET_POP, FLEET_GENS, FLEET_SLO_PCT = 16, 6, 60
+PHI_ARCH, PHI_LAYERS = "phi-3-vision-4.2b", 32
+PHI_STEPS = 16                 # teacher-forced decode steps after prefill
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
 SERVE_CHUNK = 64
@@ -216,6 +256,10 @@ SPREAD_FACTOR = 10.0
 DECODE_MAIN = (8, 24, 8, 1024, 128)
 FLASH_MAIN = (2, 24, 8, 512, 512, 128, True)
 FLASH_BF16_MAIN = (2, 24, 8, 2048, 2048, 128, True)  # the bf16 prefill's
+# phi-3-vision-4.2b's: D 96, Hq = Hkv = 32 (rep 1); flash at its 2 x 512
+# prefill, decode at 8 lanes of the serve phase's max_len
+FLASH_PHI = (2, 32, 32, 512, 512, 96, True)
+DECODE_PHI = (8, 32, 32, 1024, 96)
 # a sixth entry "edges" sets the lengths to 0, 1, a split boundary - 1, at
 # and + 1, S and past S (in turn, as many as B takes) under the kernel's
 # split plan; shapes below: the engine's width at S 1024, S 8192 with many
@@ -225,7 +269,7 @@ DECODE_PARITY = [DECODE_MAIN, (2, 8, 2, 257, 64), (1, 4, 4, 96, 32),
                  (3, 4, 1, 130, 64), (8, 24, 8, 1024, 128, "edges"),
                  (7, 8, 2, 8192, 64, "edges"), (5, 6, 2, 20, 32, "edges"),
                  (6, 4, 1, 300, 64, "edges"), (8, 24, 8, 8192, 128),
-                 (66, 32, 32, 8192, 32)]
+                 (66, 32, 32, 8192, 32), DECODE_PHI]
 # every D, causal and bidirectional, Lq < Lk, ragged L (not a multiple of
 # the tiles), L < 16, and Hq / Hkv of 1, 3 and 8
 FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
@@ -235,10 +279,11 @@ FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                 (1, 6, 2, 130, 200, 64, False),
                 (2, 8, 1, 200, 333, 96, True), (1, 3, 1, 9, 9, 128, True),
                 (1, 24, 8, 13, 13, 96, False), (1, 4, 4, 150, 150, 32, False),
-                (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False)]
-DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128)]
+                (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False),
+                FLASH_PHI]
+DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128), DECODE_PHI]
 FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
-               FLASH_BF16_MAIN]
+               FLASH_BF16_MAIN, FLASH_PHI]
 PARITY_POPS = (64, 2048)
 TIME_POPS = (64, 512, 2048, 4096)
 # mapping-eval edge shapes (B, P, T, W, C): T not a multiple of 4 (4-byte
@@ -1062,6 +1107,7 @@ def phase_main(scenario, device) -> dict:
           "rtol": golden["rtol"], "launches": stats["launches"],
           "launches_by_route": _me_routes()})
     runs["compare"] = _compare(scenario, results["fused"], device)
+    runs["fleet_planned"] = _fleet_planned(device)
     return runs
 
 
@@ -1185,6 +1231,137 @@ def _compare(scenario, compass, device) -> dict:
     return rec
 
 
+def _jax_fleet_record() -> dict:
+    """The JAX package's CPU record of the same fleet frontier
+    (BENCH_serving.json, ``fleet_frontier``) by rate, printed beside the
+    port's for comparison only: that file predates the port."""
+    with open(ROOT / "BENCH_serving.json") as f:
+        rec = json.load(f)["fleet_frontier"]
+    return {"objective": rec["objective"],
+            "points": {p["rate"]: p for p in rec["points"]}}
+
+
+def _fleet_planned(device) -> dict:
+    """The fleet control plane over the search path: at each rate of
+    FLEET_RATES, ``plan_scale_out`` of a 1-replica fleet (keep, re_search
+    warm-started from the keep serve's ``MappingSearchOutput``, add_replica)
+    whose replicas price every rollout by a ``compass_pricer`` goodput
+    search on the card under the default (fused) backend. Every evaluator
+    call reaches ``mapping_eval_fused`` on the shared-row route and nothing
+    dispatches to a plain version. Prints per rate the best action, its
+    replica count, goodput per dollar and loads, every option's score,
+    the wall and the launches, beside the JAX package's CPU record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import llm_spec
+    from repro_torch.core import timing
+    from repro_torch.core.compass import MappingSearchOutput, search_mapping
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.hardware import make_hardware
+    from repro_torch.core.objectives import GoodputUnderSLO
+    from repro_torch.core.streams import RequestStream, rollout
+    from repro_torch.core.traces import SHAREGPT
+    from repro_torch.core.workload import DECODE
+    from repro_torch.fleet import (
+        Fleet,
+        PlannedReplica,
+        compass_pricer,
+        plan_scale_out,
+    )
+    from repro_torch.serving.scheduler import get_scheduler
+
+    spec = llm_spec(SERVE_ARCH)
+    hw = make_hardware(512, "L", tensor_parallel=8)
+    hw = hw.replace(layout=tuple(["WS", "OS"] * (hw.n_chiplets // 2)))
+    base = RequestStream("sharegpt-fleet", trace=SHAREGPT, rate=1.0,
+                         n_requests=FLEET_REQUESTS, warm_fraction=FLEET_WARM,
+                         max_new_tokens_cap=FLEET_NEW_CAP, seed=0)
+    ga = GAConfig(population=FLEET_POP, generations=FLEET_GENS)
+    t0 = time.perf_counter()
+    mid = sorted(FLEET_RATES)[len(FLEET_RATES) // 2]
+    pre_ro = rollout(base.with_rate(mid), get_scheduler("orca"),
+                     max_slots=FLEET_SLOTS, max_iters=FLEET_ITERS)
+    pre_mbs = [hw.micro_batch_decode if any(r.kind == DECODE for r in b)
+               else hw.micro_batch_prefill for b in pre_ro.batches]
+    pre = search_mapping(spec, pre_ro.batches, hw, pre_mbs, ga,
+                         objective="latency", n_blocks=FLEET_BLOCKS,
+                         device=device)
+    pre_tim = pre_ro.timings(pre.batch_latencies)
+    obj = GoodputUnderSLO(
+        ttft_slo_s=float(np.percentile(pre_tim.cold_ttft_s, FLEET_SLO_PCT)),
+        tpot_slo_s=float(np.percentile(pre_tim.tpot_s, FLEET_SLO_PCT)))
+    torch.cuda.synchronize()
+    pre_wall = time.perf_counter() - t0
+
+    def replica(name="r0", warm_from=None):
+        return PlannedReplica(
+            pricer=compass_pricer(spec, hw, ga, objective=obj,
+                                  n_blocks=FLEET_BLOCKS, warm_from=warm_from,
+                                  device=device),
+            scheduler="orca", max_slots=FLEET_SLOTS, max_iters=FLEET_ITERS,
+            name=name)
+
+    def re_search(rep, res):
+        donor = res.meta["search_output"]
+        check(isinstance(donor, MappingSearchOutput),
+              f"re_search donor is a {type(donor).__name__}")
+        return replica(f"{rep.name}'", donor)
+
+    jax_rec = _jax_fleet_record()
+    points = []
+    for rate in FLEET_RATES:
+        timing.clear_timing_backend_stats()        # counts to 0 just before
+        t0 = time.perf_counter()
+        dec = plan_scale_out(Fleet([replica()]), base, rate, objective=obj,
+                             re_search=re_search)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = timing.timing_backend_stats()      # read just after
+        stats["routes"] = _me_routes()
+        _path_ok(stats, "mapping_eval_fused")
+        best = dec.best
+        check([o.action for o in dec.options]
+              == ["keep", "re_search", "add_replica"]
+              and math.isfinite(best.score) and best.score > 0
+              and all(o.result.timings.finished.all() for o in dec.options),
+              f"fleet at rate {rate}: {dec.record()}")
+        searches = [r.meta for o in dec.options
+                    for r in o.result.replica_results]
+        point = {"rate": rate, "best_action": best.action,
+                 "n_replicas": best.fleet.n_replicas,
+                 "goodput_per_dollar": best.score,
+                 "goodput_req_per_s": best.result.goodput(obj),
+                 "mc_total": best.result.mc_total,
+                 "loads": best.result.route.loads().tolist(),
+                 "options": [{"action": o.action,
+                              "n_replicas": o.fleet.n_replicas,
+                              "goodput_per_dollar": o.score,
+                              "truncated": o.result.truncated}
+                             for o in dec.options],
+                 "searches": len(searches),
+                 "search_modes": [m["mode"] for m in searches],
+                 "ga_evaluations": sum(m["ga_evaluations"]
+                                       for m in searches),
+                 "wall_s": wall,
+                 "launches": stats["launches"]["mapping_eval_fused"],
+                 "launches_by_route": {
+                     r: stats["routes"][f"mapping_eval_fused:{r}"]
+                     for r in ("shared", "global")},
+                 "dispatches": stats["dispatches"],
+                 "jax_cpu": jax_rec["points"].get(rate)}
+        emit({"phase": "main", "run": "fleet_planned", **point})
+        points.append(point)
+    rec = {"slo": {"ttft_s": obj.ttft_slo_s, "tpot_s": obj.tpot_slo_s,
+                   "percentile_of_latency_presearch": FLEET_SLO_PCT},
+           "jax_cpu_objective": jax_rec["objective"],
+           "presearch_wall_s": pre_wall, "points": points,
+           "seconds": pre_wall + sum(p["wall_s"] for p in points)}
+    emit({"phase": "main", "run": "fleet_planned_summary",
+          **{k: v for k, v in rec.items() if k != "points"}})
+    return rec
+
+
 # --------------------------------------------------------------------------
 # the serving path
 # --------------------------------------------------------------------------
@@ -1221,10 +1398,11 @@ def _decode_dispatches(cfg, n_dec: int) -> dict:
 
 
 def _engine_run(params, cfg, arch: str, sched_name: str, device,
-                cache_dtype=None) -> tuple[dict, dict]:
+                cache_dtype=None, impl: str = "kernel") -> tuple[dict, dict]:
     """One ``ServingEngine.run`` (with the weights' dtype for its cache
-    unless ``cache_dtype`` says otherwise); returns its record and the
-    token streams {rid: (prompt, generated)}."""
+    unless ``cache_dtype`` says otherwise; ``impl="eager"`` launches no
+    kernel); returns its record and the token streams {rid: (prompt,
+    generated)}."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1234,8 +1412,8 @@ def _engine_run(params, cfg, arch: str, sched_name: str, device,
     weights = next(params.parameters()).dtype
     cache_dtype = cache_dtype or weights
     eng = ServingEngine(params, cfg, max_batch=SERVE_REQUESTS,
-                        max_len=SERVE_MAX_LEN, cache_dtype=cache_dtype,
-                        device=device)
+                        max_len=SERVE_MAX_LEN, impl=impl,
+                        cache_dtype=cache_dtype, device=device)
     reqs = _serve_requests(cfg.vocab)
     torch.cuda.synchronize()
     ops.clear_dispatch_stats()                     # counts to 0 just before
@@ -1252,14 +1430,14 @@ def _engine_run(params, cfg, arch: str, sched_name: str, device,
     check(all(len(r.generated) == SERVE_NEW for r in res.finished),
           f"{sched_name}: a request did not get {SERVE_NEW} tokens")
     n_dec = sum(1 for st in res.stats if st.n_decode)
-    want = _decode_dispatches(cfg, n_dec)
+    want = _decode_dispatches(cfg, n_dec) if impl == "kernel" else {}
     check(disp == want, f"{arch} {sched_name}: dispatch paths {disp}, "
           f"expected {want} ({n_dec} decode iterations)")
     check(all(n == want.get(f"{k}:cuda", 0) for k, n in launches.items()),
           f"{arch} {sched_name}: launches {launches}, expected {want}")
     summ = summarize(res.finished, res.stats)
     out_tokens = summ["output_tokens"]
-    rec = {"phase": "serve", "run": "engine", "arch": arch,
+    rec = {"phase": "serve", "run": "engine", "arch": arch, "impl": impl,
            "weights": str(weights).removeprefix("torch."),
            "cache": str(cache_dtype).removeprefix("torch."),
            "scheduler": sched_name, "wall_s": wall,
@@ -1305,49 +1483,96 @@ def _engine_profile(params, cfg, arch: str, device) -> dict:
     emit(rec)
     return rec
 
+def _forced_steps(params, cfg, state: dict, feed, device, tol: float,
+                  what: str) -> dict:
+    """Teacher forcing from ``state`` (``{"kernel": (logits, cache),
+    "eager": (logits, cache)}``): at each step the kernel path's logits are
+    within ``tol`` of the largest eager logit; then ``feed(step,
+    eager_logits)`` gives the next token (None ends the run) and both paths
+    take one ``decode_step``. A kernel step launches the decode kernel once
+    per attention layer and nothing else, an eager step nothing; the counts
+    are set to 0 just before the first step and read just after the last.
+    Returns the eager logits of every step with the record's numbers."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step
+
+    per_step = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    refs, worst, walls = [], 0.0, {"kernel": 0.0, "eager": 0.0}
+    ops.clear_dispatch_stats()                     # counts to 0 just before
+    ops.reset_launch_counts()
+    while True:
+        got, ref = state["kernel"][0], state["eager"][0]
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        check(torch.isfinite(got).all().item() and err <= tol * scale,
+              f"{what} step {len(refs)}: kernel vs eager logits differ by "
+              f"{err} > {tol} x {scale}")
+        worst = max(worst, err / scale)
+        refs.append(ref)
+        tok = feed(len(refs) - 1, ref)
+        if tok is None:
+            break
+        for impl in ("kernel", "eager"):
+            before = ops.launch_counts()["decode_attention"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state[impl] = decode_step(params, cfg, tok, state[impl][1],
+                                      impl=impl, device=device)
+            torch.cuda.synchronize()
+            walls[impl] += time.perf_counter() - t0
+            n = ops.launch_counts()["decode_attention"] - before
+            check(n == (per_step if impl == "kernel" else 0),
+                  f"{what} step {len(refs)} ({impl}): {n} decode launches")
+    launches, disp = ops.launch_counts(), ops.dispatch_stats()  # just after
+    steps = len(refs) - 1
+    want = steps * per_step
+    check(sum(launches.values()) == launches["decode_attention"] == want
+          and disp == ({"decode_attention:cuda": want} if want else {}),
+          f"{what}: launches {launches}, dispatches {disp}")
+    return {"refs": refs, "steps": steps, "launches": launches,
+            "dispatches": disp, "launches_per_step": per_step,
+            "max_rel_logit_err": worst, "wall_s": walls}
+
+
 def _replay(params, cfg, arch: str, streams: dict, device,
             tol: float = LOGIT_REL) -> dict:
     """Teacher forcing: each request's prompt through ``prefill`` and its
     generated tokens through ``decode_step``, once with ``impl="kernel"``
-    and once with ``impl="eager"``. At every step the two logits agree
-    within ``tol`` of the largest, and the eager argmax is the engine's
-    token wherever the eager top-two gap exceeds that tolerance."""
+    and once with ``impl="eager"`` (:func:`_forced_steps`). At every step
+    the two logits agree within ``tol`` of the largest, and the eager
+    argmax is the engine's token wherever the eager top-two gap exceeds
+    that tolerance."""
     import torch
 
-    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import init_cache, prefill
 
-    impls = ("kernel", "eager")
     worst, checked, skipped = 0.0, 0, 0
     t0 = time.perf_counter()
     for rid, (prompt, gen) in sorted(streams.items()):
         toks = torch.as_tensor([prompt], device=device)
         state = {}
-        for impl in impls:
+        for impl in ("kernel", "eager"):
             cache = init_cache(cfg, 1, SERVE_MAX_LEN, torch.float32, device)
             state[impl] = prefill(params, cfg, toks, cache, impl=impl,
                                   device=device)
-        for j, want in enumerate(gen):
-            got, ref = state["kernel"][0][0], state["eager"][0][0]
-            scale = float(ref.abs().max())
-            err = float((got - ref).abs().max())
-            check(err <= tol * scale,
-                  f"request {rid} step {j}: kernel vs eager logits differ by "
-                  f"{err} > {tol} x {scale}")
-            worst = max(worst, err / scale)
+        run = _forced_steps(
+            params, cfg, state,
+            lambda j, ref, gen=gen: (torch.as_tensor([gen[j]], device=device)
+                                     if j + 1 < len(gen) else None),
+            device, tol, f"{arch} request {rid}")
+        worst = max(worst, run["max_rel_logit_err"])
+        for j, (ref, want) in enumerate(zip(run["refs"], gen)):
+            ref = ref[0]
             top2 = torch.topk(ref, 2).values
-            if float(top2[0] - top2[1]) > tol * scale:
+            if float(top2[0] - top2[1]) > tol * float(ref.abs().max()):
                 check(int(ref.argmax()) == want,
                       f"request {rid} step {j}: eager argmax "
                       f"{int(ref.argmax())} != engine token {want}")
                 checked += 1
             else:
                 skipped += 1
-            if j + 1 < len(gen):
-                tok = torch.as_tensor([want], device=device)
-                for impl in impls:
-                    state[impl] = decode_step(params, cfg, tok,
-                                              state[impl][1], impl=impl,
-                                              device=device)
     torch.cuda.synchronize()
     rec = {"phase": "serve", "run": "teacher_forcing", "arch": arch,
            "requests": len(streams), "steps": checked + skipped,
@@ -1409,43 +1634,81 @@ def _mamba_layer_check(params, cfg, toks, device) -> dict:
     return {"max_rel_layer_err": worst, "eager_chunk_spread": spread}
 
 
-def _prefill_check(params, cfg, arch: str, kernel: str, device) -> dict:
+def _prefill_errs(k_logits, k_cache, logits, cache, tol: float,
+                  what: str) -> dict:
+    """A prefill's logits and caches (K/V, or the Mamba state) on the
+    kernel path against a reference path's: within ``tol`` of the largest
+    reference value, the lengths equal. Returns the relative errors."""
+    import torch
+
+    scale = float(logits.abs().max())
+    err = float((k_logits - logits).abs().max())
+    check(torch.isfinite(k_logits).all().item() and err <= tol * scale,
+          f"{what}: logits differ by {err} > {tol} x {scale}")
+    c_err = 0.0
+    for kc, rc in zip(k_cache, cache):
+        check(torch.equal(kc["len"], rc["len"]), f"{what}: cache lengths")
+        for key in sorted(set(kc) - {"len"}):
+            e = float((kc[key] - rc[key]).abs().max())
+            m = float(rc[key].abs().max())
+            check(e <= tol * m,
+                  f"{what}: cache {key} differs by {e} (largest {m})")
+            c_err = max(c_err, e / m)
+    return {"max_rel_logit_err": err / scale, "max_rel_cache_err": c_err}
+
+
+def _prefill_check(params, cfg, arch: str, kernel: str, device,
+                   embeds=None, first_call: bool = False) -> tuple:
     """``prefill`` of 2 prompts of 512 tokens through ``kernel`` (the flash
     kernel, or the SSD kernel of a Mamba model: one launch per layer),
     against ``impl="eager"`` and against ``extend`` from an empty cache:
     logits and caches (K/V, or the Mamba state) within LOGIT_REL of the
     largest reference value; for a Mamba model, within SPREAD_FACTOR x the
     rounding spread of :func:`_mamba_layer_check`, which also holds the
-    kernel to LOGIT_REL layer by layer. Returns the record, whose
-    ``tol`` the replay uses."""
+    kernel to LOGIT_REL layer by layer. With ``embeds`` (``[2, L,
+    d_model]``) the prompts are embeddings passed as ``inputs_embeds``, and
+    ``extend``, which takes tokens only, is left out. With ``first_call``
+    each path first makes one call whose wall is recorded apart. Returns
+    the record, whose ``tol`` the replay uses, and each path's (logits,
+    cache)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.models import extend, init_cache, prefill
 
-    rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 512)),
-                           device=device)
-    runs = {}
-    for label in ("kernel", "eager", "extend"):
-        cache = init_cache(cfg, 2, SERVE_MAX_LEN, torch.float32, device)
-        torch.cuda.synchronize()
-        if label == "kernel":
-            ops.clear_dispatch_stats()             # counts to 0 just before
-            ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        if label == "extend":
-            logits, cache = extend(params, cfg, toks, cache, impl="eager",
-                                   device=device)
-        else:
-            logits, cache = prefill(params, cfg, toks, cache, impl=label,
-                                    device=device)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if label == "kernel":
-            launches, disp = ops.launch_counts(), ops.dispatch_stats()
-        runs[label] = (logits, cache, wall)
+    if embeds is None:
+        rng = np.random.default_rng(1)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 512)),
+                               device=device)
+        args, kw, labels = (toks,), {}, ("kernel", "eager", "extend")
+    else:
+        args, kw, labels = (None,), {"inputs_embeds": embeds}, ("kernel",
+                                                                "eager")
+    prompt = args[0].shape[1] if embeds is None else embeds.shape[1]
+    runs, first = {}, {}
+    for label in labels:
+        for cold in (True, False) if first_call else (False,):
+            cache = init_cache(cfg, 2, SERVE_MAX_LEN, torch.float32, device)
+            torch.cuda.synchronize()
+            if label == "kernel" and not cold:
+                ops.clear_dispatch_stats()         # counts to 0 just before
+                ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            if label == "extend":
+                logits, cache = extend(params, cfg, *args, cache,
+                                       impl="eager", device=device)
+            else:
+                logits, cache = prefill(params, cfg, *args, cache,
+                                        impl=label, device=device, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if cold:
+                first[label] = wall
+                continue
+            if label == "kernel":
+                launches, disp = ops.launch_counts(), ops.dispatch_stats()
+            runs[label] = (logits, cache, wall)
     want = cfg.n_layers
     check(launches[kernel] == want and sum(launches.values()) == want
           and disp == {f"{kernel}:cuda": want},
@@ -1453,36 +1716,25 @@ def _prefill_check(params, cfg, arch: str, kernel: str, device) -> dict:
           f"expected {want} {kernel}:cuda")
     tol, layers = LOGIT_REL, None
     if kernel == "ssd_scan":
-        layers = _mamba_layer_check(params, cfg, toks, device)
+        layers = _mamba_layer_check(params, cfg, args[0], device)
         tol = max(LOGIT_REL, SPREAD_FACTOR * layers["eager_chunk_spread"])
-    errs = {}
     k_logits, k_cache, _ = runs["kernel"]
-    for label in ("eager", "extend"):
-        logits, cache, _ = runs[label]
-        scale = float(logits.abs().max())
-        err = float((k_logits - logits).abs().max())
-        check(torch.isfinite(k_logits).all().item() and err <= tol * scale,
-              f"{arch} prefill logits: kernel vs {label} differ by {err} > "
-              f"{tol} x {scale}")
-        c_err = 0.0
-        for kc, rc in zip(k_cache, cache):
-            check(torch.equal(kc["len"], rc["len"]), "cache lengths differ")
-            for key in sorted(set(kc) - {"len"}):
-                e = float((kc[key] - rc[key]).abs().max())
-                m = float(rc[key].abs().max())
-                check(e <= tol * m, f"{arch} prefill cache {key}: kernel vs "
-                      f"{label} differ by {e} (largest {m})")
-                c_err = max(c_err, e / m)
-        errs[label] = {"max_rel_logit_err": err / scale,
-                       "max_rel_cache_err": c_err}
+    check(tuple(k_logits.shape) == (2, cfg.vocab),
+          f"{arch} prefill logits: shape {tuple(k_logits.shape)}")
+    errs = {label: _prefill_errs(k_logits, k_cache, *runs[label][:2], tol,
+                                 f"{arch} prefill, kernel vs {label}")
+            for label in labels[1:]}
     rec = {"phase": "serve", "run": "prefill", "arch": arch, "kernel": kernel,
-           "batch": 2, "prompt": 512,
+           "inputs": "tokens" if embeds is None else "inputs_embeds",
+           "batch": 2, "prompt": prompt,
            "wall_s": {label: runs[label][2] for label in runs},
-           "tokens_per_s": {label: 2 * 512 / runs[label][2] for label in runs},
+           "first_call_wall_s": first or None,
+           "tokens_per_s": {label: 2 * prompt / runs[label][2]
+                            for label in runs},
            "launches": launches, "dispatches": disp, "vs": errs,
            "tol": tol, "per_layer": layers}
     emit(rec)
-    return rec
+    return rec, {label: runs[label][:2] for label in ("kernel", "eager")}
 
 
 def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
@@ -1519,13 +1771,15 @@ def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
               "same_tokens_as_float32_cache": same})
     service = _service_checks(params, cfg, arch, by_sched, device,
                               full=kernel == "flash_attention")
+    fleet = (_fleet_measured(params, cfg, arch, device)
+             if kernel == "flash_attention" else None)
     profile = _engine_profile(params, cfg, arch, device)
-    pre = _prefill_check(params, cfg, arch, kernel, device)
+    pre, _ = _prefill_check(params, cfg, arch, kernel, device)
     replay = _replay(params, cfg, arch, streams, device, pre["tol"])
     del params
     torch.cuda.empty_cache()
     return {"engine": runs, "service": service, "profile": profile,
-            "replay": replay, "prefill": pre}
+            "replay": replay, "prefill": pre, "fleet": fleet}
 
 
 def _service_run(params, cfg, arch: str, sched_name: str, device,
@@ -1783,6 +2037,133 @@ def _service_checks(params, cfg, arch: str, engine: dict, device,
     return out
 
 
+def _fleet_stream():
+    """SERVE_REQUESTS requests of 64-512 prompt tokens (numpy seed 5) with
+    SERVE_NEW new tokens each, two arriving per iteration; the fourth and
+    the seventh arrive decode-resident with a context of their prompt's
+    length."""
+    import numpy as np
+
+    from repro_torch.core.streams import RequestStream, StreamRequest
+
+    lens = np.random.default_rng(5).integers(64, 513, size=SERVE_REQUESTS)
+    return RequestStream.from_requests(
+        [StreamRequest(int(n), SERVE_NEW, i // 2,
+                       warm_context=int(n) if i in (3, 6) else 0)
+         for i, n in enumerate(lens)], name="fleet-measured")
+
+
+def _same_schedule(got, want) -> bool:
+    import numpy as np
+
+    return got.batches == want.batches and all(
+        np.array_equal(getattr(got, k), getattr(want, k))
+        for k in ("warm", "first_b", "done_b"))
+
+
+def _fleet_measured(params, cfg, arch: str, device) -> dict:
+    """The fleet control plane over the paged service: ``MeasuredReplica``s
+    whose factory builds a fresh ``AsyncLLMService`` per serve (the serve
+    phase's pools, orca, ``IterationClock``) on the loaded weights. A
+    1-replica fleet's rollout equals a direct ``serve_sync`` of the unsplit
+    stream, and priced with one common latency vector its merged timings
+    equal the direct serve's, bit for bit; a 2-replica round-robin fleet
+    serves every request exactly once, each replica's rollout that of a
+    direct serve of its own sub-stream. Each fleet serve launches the
+    decode kernel once per attention layer and decode iteration, with no
+    plain dispatch; each factory's pools are freed before the next serve
+    builds its own."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.streams import merge_timings
+    from repro_torch.core.workload import DECODE
+    from repro_torch.fleet import Fleet, MeasuredReplica
+    from repro_torch.kernels import ops
+    from repro_torch.serving import AsyncLLMService, ServiceConfig
+    from repro_torch.serving.scheduler import get_scheduler
+    from repro_torch.serving.service import service_requests
+
+    def make_service():
+        return AsyncLLMService(params, cfg, ServiceConfig(
+            max_batch=SERVE_REQUESTS, max_len=SERVE_MAX_LEN,
+            block_len=SERVE_BLOCK), device=device)
+
+    def direct(stream):
+        return make_service().serve_sync(
+            service_requests(stream, cfg.vocab), get_scheduler("orca"),
+            stream_name=stream.name).rollout
+
+    def serve(n_replicas):
+        fleet = Fleet([MeasuredReplica(service=make_service, vocab=cfg.vocab,
+                                       scheduler="orca", mc_total=1.0,
+                                       name=f"m{i}")
+                       for i in range(n_replicas)], policy="round_robin")
+        torch.cuda.synchronize()
+        ops.clear_dispatch_stats()                 # counts to 0 just before
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fr = fleet.serve(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, disp = ops.launch_counts(), ops.dispatch_stats()
+        n_dec = sum(any(r.kind == DECODE for r in b)
+                    for res in fr.replica_results for b in res.rollout.batches)
+        want = _decode_dispatches(cfg, n_dec)
+        check(disp == want and all(n == want.get(f"{k}:cuda", 0)
+                                   for k, n in launches.items()),
+              f"fleet of {n_replicas}: launches {launches}, dispatches "
+              f"{disp}, expected {want} ({n_dec} decode iterations)")
+        check(all(r.meta["unfinished"] == 0 for r in fr.replica_results)
+              and fr.timings.finished.all(),
+              f"fleet of {n_replicas}: a request did not finish")
+        return fr, {"n_replicas": n_replicas, "wall_s": wall,
+                    "loads": fr.route.loads().tolist(),
+                    "decode_iterations": n_dec, "launches": launches,
+                    "dispatches": disp,
+                    "iterations": [r.meta["iterations"]
+                                   for r in fr.replica_results],
+                    "device_bytes_after": torch.cuda.memory_allocated(device)}
+
+    stream = _fleet_stream()
+    t_start = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated(device)
+    one, rec_one = serve(1)
+    ro = one.replica_results[0].rollout
+    d_ro = direct(stream)
+    check(_same_schedule(ro, d_ro), "1-replica fleet: its rollout differs "
+          "from a direct serve of the unsplit stream")
+    lat = np.linspace(0.01, 0.02, len(ro.batches))
+    merged = merge_timings([ro.timings(lat)], one.route.indices,
+                           stream.n_requests)
+    dt = d_ro.timings(lat)
+    check(all(np.array_equal(getattr(merged, k), getattr(dt, k))
+              for k in ("ttft_s", "tpot_s", "finished", "warm"))
+          and merged.makespan_s == dt.makespan_s,
+          "1-replica fleet: merged timings differ from the direct serve's")
+    two, rec_two = serve(2)
+    served = np.sort(np.concatenate(two.route.indices))
+    check(np.array_equal(served, np.arange(stream.n_requests)),
+          f"2-replica fleet served {served.tolist()}")
+    for res, sub in zip(two.replica_results, two.route.substreams):
+        check(_same_schedule(res.rollout, direct(sub)),
+              f"2-replica fleet: replica {res.replica}'s rollout differs "
+              f"from a direct serve of its sub-stream")
+    rec = {"phase": "serve", "run": "fleet_measured", "arch": arch,
+           "requests": stream.n_requests,
+           "warm_requests": int(d_ro.warm.sum()),
+           "one_replica": {**rec_one, "rollout_equal_direct": True,
+                           "merged_timings_equal_direct": True,
+                           "batches": len(ro.batches)},
+           "two_replicas": {**rec_two, "each_request_once": True,
+                            "rollouts_equal_direct": True},
+           "device_bytes_before": mem0,
+           "device_bytes_end": torch.cuda.memory_allocated(device),
+           "seconds": time.perf_counter() - t_start}
+    emit(rec)
+    return rec
+
+
 def _bf16_layer_check(params, cfg, toks, device) -> dict:
     """Along the eager bfloat16 prefill's own trajectory, every layer's
     q/k/v through the bfloat16 flash kernel and through its plain version:
@@ -1899,21 +2280,108 @@ def _serve_bf16(device) -> dict:
     return {"prefill": pre, "engine": engine, "profile": profile}
 
 
+def _serve_phi(device) -> dict:
+    """phi-3-vision-4.2b at full width and depth with seeded random
+    float32 weights, its vision frontend a stub: ``prefill`` of 2 x 512
+    seeded patch embeddings (``inputs_embeds``) through the flash kernel at
+    D 96, Hq = Hkv = 32, against the eager path; PHI_STEPS teacher-forced
+    decode steps through the decode kernel from that cache, against the
+    eager path; one orca engine run of the phase's token requests through
+    the kernels and one eagerly, their tokens equal or parted only at a
+    refereed near tie (``_near_tie``). The cold cost of the RoPE tables (a
+    first call builds them for max_seq 131,072; later calls find them
+    cached) is timed apart. The weights are freed at the end."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import init_model, param_count
+    from repro_torch.models.layers import rope_freqs
+
+    arch = get(PHI_ARCH)
+    cfg = arch.model
+    check(cfg.n_layers == PHI_LAYERS and cfg.head_dim == 96
+          and cfg.n_heads == cfg.n_kv_heads == 32
+          and arch.modality_stub == "vision",
+          f"{PHI_ARCH}: {cfg}")
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rope_freqs.__wrapped__(cfg.head_dim, cfg.max_seq, cfg.rope_theta, device)
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "run": "init", "arch": PHI_ARCH,
+          "params": n_params, "bytes": 4 * n_params, "seconds": init_s,
+          "rope_tables_cold_s": time.perf_counter() - t0})
+    gen = torch.Generator(device=device).manual_seed(3)
+    embeds = 0.02 * torch.randn((2, 512, cfg.d_model), generator=gen,
+                                device=device)
+    pre, state = _prefill_check(params, cfg, PHI_ARCH, "flash_attention",
+                                device, embeds=embeds, first_call=True)
+    run = _forced_steps(
+        params, cfg, state,
+        lambda j, ref: ref.argmax(-1) if j < PHI_STEPS else None,
+        device, LOGIT_REL, f"{PHI_ARCH} decode")
+    del state
+    check(run["steps"] == PHI_STEPS, f"{PHI_ARCH}: {run['steps']} steps")
+    dec = {"phase": "serve", "run": "decode", "arch": PHI_ARCH, "batch": 2,
+           "tol": LOGIT_REL,
+           "ms_per_step": {k: 1e3 * v / PHI_STEPS
+                           for k, v in run["wall_s"].items()},
+           **{k: run[k] for k in ("steps", "launches", "dispatches",
+                                  "launches_per_step", "max_rel_logit_err")}}
+    emit(dec)
+    engine, by_kernel = _engine_run(params, cfg, PHI_ARCH, "orca", device)
+    eager, by_eager = _engine_run(params, cfg, PHI_ARCH, "orca", device,
+                                  impl="eager")
+    equal, ties = 0, []
+    for rid, (prompt, want) in sorted(by_eager.items()):
+        got = by_kernel[rid][1]
+        if got == want:
+            equal += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        ties.append({"rid": rid, "step": j, "rel_top2_gap": _near_tie(
+            params, cfg, prompt, want[:j], (want[j], got[j]), device)})
+    cmp = {"phase": "serve", "run": "engine_kernel_vs_eager", "arch": PHI_ARCH,
+           "scheduler": "orca", "requests": len(by_eager),
+           "equal_streams": equal, "near_ties": ties}
+    emit(cmp)
+    del params
+    torch.cuda.empty_cache()
+    return {"params": n_params, "prefill": pre, "decode": dec,
+            "engine": engine, "engine_eager": eager, "tokens": cmp}
+
+
 def phase_serve(device) -> dict:
     """The serving path at the full width of llama3.2-3b in float32 (and
-    its float32-weights / bfloat16-cache engine run), in bfloat16, then of
-    mamba2-2.7b (whose engine runs launch no kernel: prompts go through
-    the eager chunked SSD of ``extend``, decode through the one-step
-    recurrence; only ``prefill`` reaches the SSD kernel)."""
+    its float32-weights / bfloat16-cache engine run, and the measured
+    fleet over its paged service), in bfloat16, then of mamba2-2.7b (whose
+    engine runs launch no kernel: prompts go through the eager chunked SSD
+    of ``extend``, decode through the one-step recurrence; only
+    ``prefill`` reaches the SSD kernel), then of phi-3-vision-4.2b through
+    ``inputs_embeds``. The launch counts of the result line sum every run
+    of the path: decode over llama's engine runs, the measured fleet's
+    serves and phi-3's decode steps and kernel engine run; flash over
+    llama's and phi-3's float32 prefills."""
     llama = _serve_arch(SERVE_ARCH, SERVE_LAYERS, "flash_attention", device)
     bf16 = _serve_bf16(device)
     mamba = _serve_arch(MAMBA_ARCH, MAMBA_LAYERS, "ssd_scan", device)
-    return {"llama": llama, "llama_bf16": bf16, "mamba": mamba,
+    phi = _serve_phi(device)
+    fleet = llama["fleet"]
+    return {"llama": llama, "llama_bf16": bf16, "mamba": mamba, "phi": phi,
             "launches": {
-                "decode_attention": sum(r["launches"]["decode_attention"]
-                                        for r in llama["engine"].values()),
+                "decode_attention":
+                    sum(r["launches"]["decode_attention"]
+                        for r in llama["engine"].values())
+                    + sum(fleet[k]["launches"]["decode_attention"]
+                          for k in ("one_replica", "two_replicas"))
+                    + phi["decode"]["launches"]["decode_attention"]
+                    + phi["engine"]["launches"]["decode_attention"],
                 "flash_attention":
-                    llama["prefill"]["launches"]["flash_attention"],
+                    llama["prefill"]["launches"]["flash_attention"]
+                    + phi["prefill"]["launches"]["flash_attention"],
                 "flash_attention_bf16":
                     bf16["prefill"]["launches"]["flash_attention_bf16"],
                 "ssd_scan": mamba["prefill"]["launches"]["ssd_scan"]}}

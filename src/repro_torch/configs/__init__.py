@@ -22,6 +22,7 @@ def _load_all():
         llama3_2_3b,
         mamba2_2_7b,
         paper_models,
+        phi_3_vision_4_2b,
         qwen1_5_0_5b,
         qwen2_1_5b,
     )

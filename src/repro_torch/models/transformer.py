@@ -15,6 +15,10 @@ Paths:
 * ``extend``       — continue caches by a (padded) chunk;
 * ``decode_step``  — one token with caches (the serving inner loop).
 
+``forward`` and ``prefill`` take ``inputs_embeds`` [B, L, d_model] in place
+of tokens (a vision or audio frontend's output, as phi-3-vision's stub
+passes it); ``extend``, ``decode_step`` and the serving loops take tokens.
+
 Every path takes ``device`` (``None`` = CUDA, raising where there is none,
 as the search's entry points do) and refuses tensors that lie elsewhere,
 so nothing runs on the CPU unless the caller asks. Attention caches are
@@ -265,12 +269,34 @@ def _logits(params, cfg, x):
     return dense(params.lm_head, x)
 
 
-def forward(params, cfg: ModelConfig, tokens, impl="eager", device=None):
-    """Full-sequence forward -> logits [B, L, vocab]."""
+def _inputs(cfg: ModelConfig, tokens, inputs_embeds):
+    """The inputs checked for device: ``tokens``, or ``inputs_embeds``
+    [B, L, d_model] in their place (a modality frontend's output)."""
+    if inputs_embeds is None:
+        if tokens is None:
+            raise ValueError("pass tokens or inputs_embeds")
+        return (("tokens", tokens),)
+    if inputs_embeds.dim() != 3 or inputs_embeds.shape[-1] != cfg.d_model:
+        raise ValueError(f"inputs_embeds of shape {tuple(inputs_embeds.shape)}"
+                         f", not [B, L, {cfg.d_model}]")
+    return (("inputs_embeds", inputs_embeds),)
+
+
+def _embed_inputs(params, tokens, inputs_embeds):
+    return embed(params.embed, tokens) if inputs_embeds is None \
+        else inputs_embeds
+
+
+def forward(params, cfg: ModelConfig, tokens=None, impl="eager", device=None,
+            inputs_embeds=None):
+    """Full-sequence forward -> logits [B, L, vocab]. ``inputs_embeds``
+    [B, L, d_model], where given, takes the place of the embedded
+    ``tokens``."""
     check_impl(impl)
-    dev = _check_device(device, params, ("tokens", tokens))
+    dev = _check_device(device, params,
+                        *_inputs(cfg, tokens, inputs_embeds))
     with torch.no_grad():
-        x = embed(params.embed, tokens)
+        x = _embed_inputs(params, tokens, inputs_embeds)
         b, l, _ = x.shape
         rope = _rope(cfg, max(cfg.max_seq, l), dev)
         positions = torch.arange(l, device=dev).expand(b, l)
@@ -305,14 +331,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, impl="kernel",
-            device=None):
+            device=None, inputs_embeds=None):
     """Fill caches with the prompt; returns (last logits [B, vocab],
-    cache)."""
+    cache). ``inputs_embeds`` [B, L, d_model], where given, takes the place
+    of the embedded ``tokens`` (pass ``tokens=None``)."""
     check_impl(impl)
-    dev = _check_device(device, params, ("tokens", tokens),
+    dev = _check_device(device, params,
+                        *_inputs(cfg, tokens, inputs_embeds),
                         *_cache_tensors(cache))
     with torch.no_grad():
-        x = embed(params.embed, tokens)
+        x = _embed_inputs(params, tokens, inputs_embeds)
         b, l, _ = x.shape
         rope = _rope(cfg, max(cfg.max_seq, l), dev)
         positions = torch.arange(l, device=dev).expand(b, l)

@@ -351,7 +351,8 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (1, 8, 8, 77, 77, 32, True), (1, 6, 2, 130, 200, 64, False),
     (2, 8, 1, 200, 333, 96, True), (1, 3, 1, 9, 9, 128, True),
     (1, 24, 8, 13, 13, 96, False), (1, 4, 4, 150, 150, 32, False),
-    (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False)]
+    (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False),
+    (2, 32, 32, 512, 512, 96, True)]      # phi-3-vision's prefill: D 96, rep 1
 
 
 @pytest.mark.cuda
@@ -517,7 +518,8 @@ DECODE_CUDA_CASES = [c + (None,) for c in DECODE_CASES] + [
     (8, 24, 8, 1024, 128, None), (8, 24, 8, 8192, 128, None),
     (8, 24, 8, 1024, 128, "edges"), (7, 8, 2, 8192, 64, "edges"),
     (5, 6, 2, 20, 32, "edges"), (6, 4, 1, 300, 64, "edges"),
-    (None, 32, 32, 8192, 32, "edges")]
+    (None, 32, 32, 8192, 32, "edges"),
+    (8, 32, 32, 1024, 96, None)]          # phi-3-vision's decode: D 96, rep 1
 
 
 def _cuda_decode_inputs(device, b, hq, hkv, s, d, lengths):

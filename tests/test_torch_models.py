@@ -1,14 +1,16 @@
 """The port's dense model stack against the JAX package on identical
 weights (``params_from_jax``) and inputs, at the reduced configs.
 
-For each of five dense configs — llama3.2-3b (GQA), qwen1.5-0.5b (MHA,
+For each of six dense configs — llama3.2-3b (GQA), qwen1.5-0.5b (MHA,
 QKV bias), qwen2-1.5b (GQA, QKV bias), gpt3-7b (LayerNorm, ungated GELU
-FFN) and llama3-70b (untied head) — ``forward``, ``prefill``, a padded
-``extend`` and ``decode_step`` with an ``active`` mask give logits and
-caches within 1e-5 of the largest reference value: ``impl="eager"``
-against JAX ``impl="xla"``, and ``impl="kernel"`` (the kernels' plain
-versions on the CPU) against JAX ``impl="pallas"`` (interpret mode). The
-only differences are float32 sums taken in another order.
+FFN), llama3-70b (untied head) and phi-3-vision-4.2b (MHA; its vision
+stub's ``inputs_embeds`` in place of tokens, below) — ``forward``,
+``prefill``, a padded ``extend`` and ``decode_step`` with an ``active``
+mask give logits and caches within 1e-5 of the largest reference value:
+``impl="eager"`` against JAX ``impl="xla"``, and ``impl="kernel"`` (the
+kernels' plain versions on the CPU) against JAX ``impl="pallas"``
+(interpret mode). The only differences are float32 sums taken in another
+order.
 """
 import dataclasses
 import functools
@@ -33,7 +35,7 @@ from repro_torch.core.interop import cache_from_jax, params_from_jax  # noqa: E4
 from repro_torch.kernels import ops  # noqa: E402
 
 ARCHS = ("llama3.2-3b", "qwen1.5-0.5b", "qwen2-1.5b", "gpt3-7b",
-         "llama3-70b")
+         "llama3-70b", "phi-3-vision-4.2b")
 IMPLS = (("eager", "xla"), ("kernel", "pallas"))
 REL = 1e-5
 CPU = "cpu"
@@ -140,6 +142,74 @@ def test_serving_paths_match_jax(arch, impl, j_impl):
         assert paths == {"flash_attention:plain", "decode_attention:plain"}
     else:
         assert paths == set()
+
+
+@pytest.mark.parametrize("impl,j_impl", IMPLS)
+def test_inputs_embeds_paths_match_jax(impl, j_impl):
+    """phi-3-vision's stub frontend: seeded patch embeddings through
+    ``forward`` and ``prefill`` in place of tokens, then 4 greedy
+    ``decode_step``s from that cache, within REL of the JAX package; the
+    embeds give the embedded tokens' logits exactly."""
+    j_cfg, j_params, cfg, params = _model("phi-3-vision-4.2b")
+    rng = np.random.default_rng(96)
+    emb = (0.02 * rng.standard_normal((2, 12, cfg.d_model))).astype(
+        np.float32)
+    ops.clear_dispatch_stats()
+    want = j_forward(j_params, j_cfg, inputs_embeds=jnp.asarray(emb),
+                     impl=j_impl)
+    got = t_models.forward(params, cfg, impl=impl, device=CPU,
+                           inputs_embeds=torch.as_tensor(emb))
+    _close(got, want, "forward logits from embeds")
+
+    j_cache = j_init_cache(j_cfg, 2, 32, dtype=jnp.float32)
+    cache = t_models.init_cache(cfg, 2, 32, dtype=torch.float32, device=CPU)
+    j_logits, j_cache = j_prefill(j_params, j_cfg, None, j_cache,
+                                  inputs_embeds=jnp.asarray(emb), impl=j_impl)
+    logits, cache = t_models.prefill(params, cfg, None, cache, impl=impl,
+                                     device=CPU,
+                                     inputs_embeds=torch.as_tensor(emb))
+    _close(logits, j_logits, "prefill logits from embeds")
+    _caches_close(cache, j_cache, "prefill from embeds")
+    for step in range(4):
+        tok = np.array(jnp.argmax(j_logits, -1))
+        j_logits, j_cache = j_decode(j_params, j_cfg, jnp.asarray(tok),
+                                     j_cache, impl=j_impl)
+        logits, cache = t_models.decode_step(params, cfg,
+                                             torch.as_tensor(tok), cache,
+                                             impl=impl, device=CPU)
+        _close(logits, j_logits, f"decode step {step} after embeds")
+        _caches_close(cache, j_cache, f"decode step {step} after embeds")
+    assert cache[0]["len"].tolist() == [16, 16]
+    paths = set(ops.dispatch_stats())
+    assert paths == ({"flash_attention:plain", "decode_attention:plain"}
+                     if impl == "kernel" else set())
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 12)))
+    embedded = params.embed.e[toks]
+    assert torch.equal(
+        t_models.forward(params, cfg, toks, impl=impl, device=CPU),
+        t_models.forward(params, cfg, impl=impl, device=CPU,
+                         inputs_embeds=embedded))
+
+
+def test_inputs_embeds_are_checked():
+    """Embeds on another device raise as tokens do (never copied across);
+    a wrong width or no input at all raises too."""
+    _, _, cfg, params = _model("phi-3-vision-4.2b")
+    cache = t_models.init_cache(cfg, 1, 8, dtype=torch.float32, device=CPU)
+    for bad, match in ((torch.zeros((1, 4, cfg.d_model), device="meta"),
+                        "meta"),
+                       (torch.zeros((1, 4, cfg.d_model + 1)), "inputs_embeds"),
+                       (torch.zeros((4, cfg.d_model)), "inputs_embeds")):
+        with pytest.raises(ValueError, match=match):
+            t_models.forward(params, cfg, device=CPU, inputs_embeds=bad)
+        with pytest.raises(ValueError, match=match):
+            t_models.prefill(params, cfg, None, cache, device=CPU,
+                             inputs_embeds=bad)
+    with pytest.raises(ValueError, match="tokens or inputs_embeds"):
+        t_models.forward(params, cfg, device=CPU)
+    with pytest.raises(ValueError, match="tokens or inputs_embeds"):
+        t_models.prefill(params, cfg, None, cache, device=CPU)
 
 
 def test_cache_round_trip_from_jax():
