@@ -37,7 +37,12 @@ Phases — any failure raises and the script exits non-zero:
            under the kernel's own split plan, at S 8192, at split-edge
            lengths (0, 1, a range boundary - 1, at and + 1, S, past S), S
            below one tile, S not a whole number of tiles, and a B * Hkv
-           that fills the card (one range).
+           that fills the card (one range); and at MLA's absorbed decode
+           (k and v one tensor): deepseek-v2-236b's B 8, Hq 128, Hkv 1,
+           D 576 at S 1024 (seeded lengths and split edges) and S 8192, a
+           rep that no head group divides (Hq 6), a GQA rep x D past what
+           one block held before head groups (Hq 16, Hkv 2, D 576) and
+           the reduced config's Hq 4, D 48.
            The SSD scan kernels at mamba2-2.7b's prefill shape (B 2, L 512,
            H 80, P 64, N 128), at the shapes of tests/test_kernels.py, at
            a ragged L (700), at L < 8 (5) and at the edges of their tiles
@@ -130,7 +135,20 @@ Phases — any failure raises and the script exits non-zero:
            caches within 1e-4 of the largest; 16 teacher-forced decode
            steps from that cache (32 decode launches each) within 1e-4;
            one orca engine run through the kernels and one eagerly, their
-           tokens equal or parted only at a near tie;
+           tokens equal or parted only at a near tie. Then
+           deepseek-v2-236b (MLA + MoE) at full width, its depth cut from
+           60 layers to 2 (9.15 B seeded random float32 parameters): each
+           layer's decode kernel on its own q_eff and latent cache
+           (captured in an eager decode step) within 2e-5 of its plain
+           version; one orca engine run (prompts through ``extend``, 2
+           decode launches per decode iteration, no plain dispatch); its
+           streams teacher-forced at the engine's 8 lanes through the
+           kernel and eagerly, logits within LOGIT_REL, a lane parting
+           only at a printed MoE routing flip with a gate margin under
+           ROUTE_MARGIN; one orca ``AsyncLLMService`` run under
+           ``IterationClock``, admissions, batches and RequestTimings
+           equal to the plan bit for bit, 2 launches per decode
+           iteration;
 5. times   CUDA-event times of each kernel, its plain version and, for the
            attention kernels, ``torch.nn.functional.scaled_dot_product_
            attention`` on the same inputs, beside the least time the card
@@ -159,7 +177,13 @@ Phases — any failure raises and the script exits non-zero:
            (b, h, 64 columns of P) walking the chunks in series) in turns
            (serial, new, new, serial), with each one's device time per
            device kernel from ``torch.profiler`` and the wrapper's host
-           time per call (no library call computes it);
+           time per call (no library call computes it); and MLA's decode
+           (B 8, Hq 128, Hkv 1, D 576, k is v, S 1024 and 8192; a float32
+           q over a float32 and over a bfloat16 latent, and bfloat16 over
+           bfloat16) with its plan (heads per block, head groups, split,
+           shared bytes, blocks per SM), in turns with the library call
+           where it takes the types, beside the bound of the latent read
+           once;
 6. profile one hardware point's mapping search (the search path's GA)
            under ``torch.profiler``: wall, device busy time and share, and
            the kernels that take the device time.
@@ -171,6 +195,7 @@ one ``{"kernels": [...]}`` line and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -237,6 +262,11 @@ FLEET_SLOTS, FLEET_ITERS, FLEET_BLOCKS = 2, 2048, 2
 FLEET_POP, FLEET_GENS, FLEET_SLO_PCT = 16, 6, 60
 PHI_ARCH, PHI_LAYERS = "phi-3-vision-4.2b", 32
 PHI_STEPS = 16                 # teacher-forced decode steps after prefill
+# deepseek-v2-236b at full width, its depth cut from 60 layers to 2 (each
+# MLA + MoE: 4.05 B parameters a layer, 9.15 B with embedding and head)
+DEEPSEEK_ARCH, DEEPSEEK_FULL_LAYERS, DEEPSEEK_LAYERS = \
+    "deepseek-v2-236b", 60, 2
+ROUTE_MARGIN = 1e-5            # an MoE choice this close may flip
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
 SERVE_CHUNK = 64
@@ -281,6 +311,17 @@ FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                 (1, 24, 8, 13, 13, 96, False), (1, 4, 4, 150, 150, 32, False),
                 (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False),
                 FLASH_PHI]
+# MLA's absorbed decode: deepseek-v2-236b's 128 query heads over its one
+# latent head at D 576 (kv_rank 512 + rope_dim 64), one tensor passed as k
+# and v ("shared"), at the serve phase's 8 lanes; then S 8192, the split
+# edges at S 1024, a rep no head group divides (6 = 4 + 2), a GQA rep x D
+# just past what one block held before head groups (8 x 576) and the
+# reduced config's shape (Hq 4, D 48)
+DECODE_MLA = (8, 128, 1, 1024, 576, "shared")
+DECODE_MLA_TIMES = [DECODE_MLA, (8, 128, 1, 8192, 576, "shared")]
+DECODE_PARITY += DECODE_MLA_TIMES + [
+    (8, 128, 1, 1024, 576, "shared", "edges"), (2, 6, 1, 96, 576, "shared"),
+    (2, 16, 2, 100, 576, "shared"), (2, 4, 1, 96, 48, "shared")]
 DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128), DECODE_PHI]
 FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                FLASH_BF16_MAIN, FLASH_PHI]
@@ -431,8 +472,9 @@ def with_gathered(inp: dict) -> dict:
 
 def decode_inputs(shape, dtype: str, seed: int) -> dict:
     """Seeded decode inputs on the card: q [B, Hq, D], caches
-    [B, S, Hkv, D], lengths [B] in 1..S, or the split edges of
-    DECODE_PARITY when the shape ends in "edges"."""
+    [B, S, Hkv, D] (one tensor as k and v where the shape's flags say
+    "shared"), lengths [B] in 1..S, or the split edges of DECODE_PARITY
+    where they say "edges"."""
     import numpy as np
     import torch
 
@@ -446,11 +488,13 @@ def decode_inputs(shape, dtype: str, seed: int) -> dict:
         return torch.as_tensor(rng.standard_normal(sh, dtype=np.float32),
                                device="cuda").to(dt)
 
-    inp = {"q": normal(b, hq, d), "k": normal(b, s, hkv, d),
-           "v": normal(b, s, hkv, d)}
+    shared = "shared" in shape[5:]
+    inp = {"q": normal(b, hq, d), "k": normal(b, s, hkv, d)}
+    inp["v"] = inp["k"] if shared else normal(b, s, hkv, d)
     lengths = rng.integers(1, s + 1, size=b)
-    if shape[5:] == ("edges",):
-        _, split_len = da.split_plan(b, hkv, s, da.sm_count("cuda"))
+    if "edges" in shape[5:]:
+        split_len = da.decode_plan(b, hq, hkv, s, d, dt, dt,
+                                   da.sm_count("cuda"), shared).split_len
         edges = [0, 1, split_len - 1, split_len, split_len + 1, s, s + 9]
         lengths = np.array([edges[i % len(edges)] for i in range(b)])
     inp["lengths"] = torch.as_tensor(lengths, dtype=torch.int32,
@@ -495,7 +539,7 @@ def run_attention(name: str, inp: dict, how: str):
         if how == "plain":
             return da.decode_attention_plain(q, k, v, lengths)
         if how == "plain_split":   # under the kernel's own split plan
-            n_split, _ = da.kernel_plan(q, k)
+            n_split = da.kernel_plan(q, k, v).n_split
             return da.decode_attention_plain(q, k, v, lengths,
                                              n_split=n_split)
         mask = (torch.arange(k.shape[1], device=q.device)[None, :]
@@ -517,15 +561,17 @@ def run_attention(name: str, inp: dict, how: str):
 def attention_bound(name: str, inp: dict) -> dict:
     """Bytes and operations the function needs on these inputs (each input
     read once, each output written once; decode reads only the live K/V
-    rows, flash does only the visible (query, key) pairs), and the least
-    time the card could take for them."""
+    rows, once where k and v are one tensor, flash does only the visible
+    (query, key) pairs), and the least time the card could take for
+    them."""
     q, k = inp["q"], inp["k"]
     item = q.element_size()
     if name == "decode_attention":
         b, hq, d = q.shape
         s, hkv = k.shape[1], k.shape[2]
         live = int(inp["lengths"].clamp(min=0, max=s).sum())
-        nbytes = live * hkv * d * 2 * k.element_size() \
+        reads = 1 if inp["v"] is k else 2
+        nbytes = live * hkv * d * reads * k.element_size() \
             + 2 * q.numel() * item + 4 * b
         ops = 4 * hq * d * live
     else:
@@ -895,15 +941,16 @@ def _decode_split_parity(inp: dict, got, tol: float) -> dict:
 
     from repro_torch.kernels import decode_attention as da
 
-    n_split, split_len = da.kernel_plan(inp["q"], inp["k"])
+    plan = da.kernel_plan(inp["q"], inp["k"], inp["v"])
     want = run_attention("decode_attention", inp, "plain_split")
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     check(got.dtype == want.dtype and err <= tol,
           f"decode_attention {tuple(inp['k'].shape)} differs from its plain "
-          f"version under its split plan ({n_split} x {split_len}): max abs "
-          f"err {err} > {tol}")
-    return {"n_split": n_split, "split_len": split_len,
+          f"version under its split plan ({plan.n_split} x "
+          f"{plan.split_len}): max abs err {err} > {tol}")
+    return {"heads_per_block": plan.hpb, "head_groups": plan.n_hg,
+            "n_split": plan.n_split, "split_len": plan.split_len,
             "lengths": inp["lengths"].tolist()[:8],
             "max_abs_err_split_plan": err}
 
@@ -1484,15 +1531,17 @@ def _engine_profile(params, cfg, arch: str, device) -> dict:
     return rec
 
 def _forced_steps(params, cfg, state: dict, feed, device, tol: float,
-                  what: str) -> dict:
+                  what: str, lanes=None) -> dict:
     """Teacher forcing from ``state`` (``{"kernel": (logits, cache),
     "eager": (logits, cache)}``): at each step the kernel path's logits are
-    within ``tol`` of the largest eager logit; then ``feed(step,
-    eager_logits)`` gives the next token (None ends the run) and both paths
-    take one ``decode_step``. A kernel step launches the decode kernel once
-    per attention layer and nothing else, an eager step nothing; the counts
-    are set to 0 just before the first step and read just after the last.
-    Returns the eager logits of every step with the record's numbers."""
+    within ``tol`` of the largest eager logit (on the lanes that
+    ``lanes(step)`` keeps, where it is given: a [B] bool mask); then
+    ``feed(step, eager_logits)`` gives the next token (None ends the run)
+    and both paths take one ``decode_step``. A kernel step launches the
+    decode kernel once per attention layer and nothing else, an eager step
+    nothing; the counts are set to 0 just before the first step and read
+    just after the last. Returns the eager logits of every step with the
+    record's numbers."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1505,7 +1554,10 @@ def _forced_steps(params, cfg, state: dict, feed, device, tol: float,
     while True:
         got, ref = state["kernel"][0], state["eager"][0]
         scale = float(ref.abs().max())
-        err = float((got - ref).abs().max())
+        diff = (got - ref).abs()
+        if lanes is not None:
+            diff = diff[lanes(len(refs))]
+        err = float(diff.max()) if diff.numel() else 0.0
         check(torch.isfinite(got).all().item() and err <= tol * scale,
               f"{what} step {len(refs)}: kernel vs eager logits differ by "
               f"{err} > {tol} x {scale}")
@@ -2354,6 +2406,248 @@ def _serve_phi(device) -> dict:
             "engine": engine, "engine_eager": eager, "tokens": cmp}
 
 
+def _lane_state(params, cfg, streams: dict, impl: str, device):
+    """The engine's lanes after prefill: one lane per request (in rid
+    order) of a SERVE_REQUESTS-lane float32 cache, each prompt through
+    ``extend`` in one chunk right-padded to its power-of-two bucket, as
+    the engine's orca run prefills it; returns (last logits [B, vocab],
+    cache)."""
+    import torch
+
+    from repro_torch.models import extend, init_cache
+
+    cache = init_cache(cfg, SERVE_REQUESTS, SERVE_MAX_LEN, torch.float32,
+                       device)
+    logits = []
+    for lane, rid in enumerate(sorted(streams)):
+        prompt = streams[rid][0]
+        toks = torch.zeros((1, 1 << max(0, len(prompt) - 1).bit_length()),
+                           dtype=torch.long, device=device)
+        toks[0, :len(prompt)] = torch.as_tensor(prompt, device=device)
+        row = [{k: t[lane:lane + 1] for k, t in layer.items()}
+               for layer in cache]
+        out, row = extend(params, cfg, toks, row, impl=impl,
+                          length=len(prompt), device=device)
+        for layer, r in zip(cache, row):
+            layer["len"][lane:lane + 1] = r["len"]
+        logits.append(out)
+    return torch.cat(logits), cache
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every MoE routing the port makes while the block runs, in order:
+    (router softmax, top-k gates, expert gates, expert tokens) per call of
+    ``repro_torch.models.moe.route``."""
+    from repro_torch.models import moe
+
+    log, route = [], moe.route
+
+    def recorded(*args, **kwargs):
+        out = route(*args, **kwargs)
+        log.append(out)
+        return out
+
+    moe.route = recorded
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def _route_flips(kernel: list, eager: list, top_k: int) -> list:
+    """Where the two paths' routings of one step differ: each token whose
+    top-k experts differ (its margin: the k-th minus the (k+1)-th router
+    gate, the smaller of the two paths'), and each expert whose chosen
+    tokens with a nonzero gate differ (its margin: its C-th minus its
+    (C+1)-th gate); with the tokens (lanes) each flip touches."""
+    flips = []
+    for layer, (a, b) in enumerate(zip(kernel, eager)):
+        (ga, ma, _, ia), (gb, mb, _, ib) = (
+            [t.cpu() for t in route] for route in (a, b))
+        for t in ((ma > 0) != (mb > 0)).any(-1).nonzero().flatten().tolist():
+            tops = [g[t].sort(descending=True).values for g in (ga, gb)]
+            gaps = [float(v[top_k - 1] - v[top_k]) for v in tops]
+            flips.append({"layer": layer, "kind": "token_choice",
+                          "token": t, "experts": ((ma[t] > 0)
+                                                  != (mb[t] > 0)).nonzero()
+                          .flatten().tolist(), "margin": min(gaps),
+                          "lanes": [t]})
+        cap = ia.shape[1]
+        for e in range(ia.shape[0]):
+            got = {int(i) for i, g in zip(ia[e], ma.T[e][ia[e]]) if g > 0}
+            want = {int(i) for i, g in zip(ib[e], mb.T[e][ib[e]]) if g > 0}
+            if got == want:
+                continue
+            gaps = []
+            for m in (ma, mb):
+                col = m.T[e].sort(descending=True).values
+                gaps.append(float(col[cap - 1] - col[cap])
+                            if cap < col.numel() else float("inf"))
+            flips.append({"layer": layer, "kind": "expert_choice",
+                          "expert": e, "margin": min(gaps),
+                          "lanes": sorted(got ^ want)})
+    return flips
+
+
+def _mla_layer_check(params, cfg, cache, tok, device) -> dict:
+    """One eager ``decode_step`` from a copy of ``cache``, capturing each
+    MLA layer's q_eff [B, 128, 576] and latent cache (one tensor as k and
+    v) at its attention; on each, the decode kernel against its plain
+    version, in one range and under the kernel's own plan, within
+    ATTN_TOLS float32 (these launches are not the path's count)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import attention, decode_step
+
+    caught, xla = [], attention._xla_decode
+
+    def capture(q, k, v, lengths):
+        caught.append((q.clone(), k.clone(), lengths.clone(), k is v))
+        return xla(q, k, v, lengths)
+
+    attention._xla_decode = capture
+    try:
+        decode_step(params, cfg, tok, [{k: t.clone() for k, t in c.items()}
+                                       for c in cache], impl="eager",
+                    device=device)
+    finally:
+        attention._xla_decode = xla
+    tol, layers = ATTN_TOLS["float32"], []
+    check(len(caught) == cfg.n_layers, f"{len(caught)} MLA layers caught")
+    for i, (q, kv, lengths, same) in enumerate(caught):
+        check(same and tuple(q.shape) == (SERVE_REQUESTS, cfg.n_heads,
+                                          cfg.mla_kv_rank + cfg.mla_rope_dim),
+              f"layer {i}: q {tuple(q.shape)}, k is v: {same}")
+        plan = da.kernel_plan(q, kv, kv)
+        got = da.decode_attention_cuda(q, kv, kv, lengths)
+        one = da.decode_attention_plain(q, kv, kv, lengths)
+        split = da.decode_attention_plain(q, kv, kv, lengths,
+                                          n_split=plan.n_split)
+        torch.cuda.synchronize()
+        errs = [float((got - w).abs().max()) for w in (one, split)]
+        check(max(errs) <= tol, f"{DEEPSEEK_ARCH} layer {i}: decode kernel "
+              f"vs plain {errs} > {tol}")
+        layers.append({"layer": i, "max_abs_err": errs[0],
+                       "max_abs_err_split_plan": errs[1],
+                       "largest": float(one.abs().max()),
+                       "lengths": lengths.tolist(), "plan": plan._asdict()})
+    rec = {"phase": "serve", "run": "layer_gate", "arch": DEEPSEEK_ARCH,
+           "kernel": "decode_attention", "tol": tol, "layers": layers}
+    emit(rec)
+    return rec
+
+
+def _serve_deepseek(device) -> dict:
+    """deepseek-v2-236b at full width (MLA: 128 heads, kv_rank 512,
+    rope_dim 64; MoE: 160 routed experts of 1536, 2 shared, top 6) with
+    its depth cut to DEEPSEEK_LAYERS, seeded random float32 weights: each
+    layer's decode kernel held to its plain version on the layer's own
+    q_eff and latent (``_mla_layer_check``); one orca engine run (prompts
+    through ``extend``, each decode iteration one decode launch per layer,
+    no plain dispatch) and one more under ``torch.profiler``; its streams teacher-forced at the engine's lanes
+    through ``impl="kernel"`` and ``"eager"`` within LOGIT_REL, a lane
+    parting only where an MoE choice flipped between the paths at a gate
+    margin under ROUTE_MARGIN (or through a lane that had); one orca
+    ``AsyncLLMService`` run under ``IterationClock``, its schedule equal
+    to the plan bit for bit. Its tokens are not compared with the
+    engine's: MoE routing follows the batch, and the service decodes at
+    buckets of 1-8 lanes. MLA's ``prefill`` (flash cannot take its
+    shapes) runs nowhere here. The weights are freed at the end."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import init_model, param_count
+
+    full = get(DEEPSEEK_ARCH).model
+    check(full.n_layers == DEEPSEEK_FULL_LAYERS and full.attn_kind == "mla"
+          and full.n_heads == 128
+          and full.mla_kv_rank + full.mla_rope_dim == 576
+          and full.moe.n_routed == 160 and full.moe_every == 1,
+          f"{DEEPSEEK_ARCH}: {full}")
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    emit({"phase": "serve", "run": "init", "arch": DEEPSEEK_ARCH,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "params": n_params, "bytes": 4 * n_params,
+          "seconds": time.perf_counter() - t0})
+    engine, streams = _engine_run(params, cfg, DEEPSEEK_ARCH, "orca", device)
+    per_iter = engine["launches"]["decode_attention"] \
+        / engine["decode_iterations"]
+    check(per_iter == cfg.n_layers, f"{per_iter} decode launches per "
+          f"decode iteration")
+    profile = _engine_profile(params, cfg, DEEPSEEK_ARCH, device)
+
+    state = {impl: _lane_state(params, cfg, streams, impl, device)
+             for impl in ("kernel", "eager")}
+    gen = [streams[rid][1] for rid in sorted(streams)]
+    first = torch.as_tensor([g[0] for g in gen], device=device)
+    gate = _mla_layer_check(params, cfg, state["eager"][1], first, device)
+    parted, flips = set(), []
+    with _recorded_routes() as log:
+        def lanes(step):
+            if step == 0:
+                log.clear()
+                return torch.ones(SERVE_REQUESTS, dtype=torch.bool,
+                                  device=device)
+            n = cfg.n_layers
+            for f in _route_flips(log[-2 * n:-n], log[-n:], cfg.moe.top_k):
+                excused = f["margin"] < ROUTE_MARGIN \
+                    or parted & set(f["lanes"])
+                check(excused, f"{DEEPSEEK_ARCH} step {step}: an MoE choice "
+                      f"flipped at a margin of {f['margin']}: {f}")
+                parted.update(f["lanes"])
+                flips.append({"step": step, **f})
+            keep = torch.ones(SERVE_REQUESTS, dtype=torch.bool)
+            keep[sorted(parted)] = False
+            return keep.to(device)
+
+        run = _forced_steps(
+            params, cfg, state,
+            lambda j, ref: (torch.as_tensor([g[j] for g in gen],
+                                            device=device)
+                            if j + 1 < SERVE_NEW else None),
+            device, LOGIT_REL, f"{DEEPSEEK_ARCH} replay", lanes=lanes)
+    agree = sum(int(int(ref[lane].argmax()) == gen[lane][j])
+                for j, ref in enumerate(run["refs"])
+                for lane in range(SERVE_REQUESTS))
+    replay = {"phase": "serve", "run": "teacher_forcing",
+              "arch": DEEPSEEK_ARCH, "lanes": SERVE_REQUESTS,
+              "tol": LOGIT_REL, "route_margin": ROUTE_MARGIN,
+              "route_flips": flips, "parted_lanes": sorted(parted),
+              "eager_argmax_equal_engine_token": agree,
+              "tokens": SERVE_REQUESTS * len(run["refs"]),
+              "ms_per_step": {k: 1e3 * v / max(1, run["steps"])
+                              for k, v in run["wall_s"].items()},
+              **{k: run[k] for k in ("steps", "launches", "dispatches",
+                                     "launches_per_step",
+                                     "max_rel_logit_err")}}
+    emit(replay)
+    del state
+    res, svc, service = _service_run(params, cfg, DEEPSEEK_ARCH, "orca",
+                                     device)
+    del svc
+    _plan_parity(res, "orca", cfg.vocab)
+    service["plan_parity"] = "bitwise"
+    service["launches_per_decode_iteration"] = \
+        service["launches"]["decode_attention"] / service["decode_iterations"]
+    check(service["launches_per_decode_iteration"] == cfg.n_layers,
+          f"service: {service['launches_per_decode_iteration']} decode "
+          f"launches per decode iteration")
+    emit(service)
+    del params
+    torch.cuda.empty_cache()
+    return {"params": n_params, "engine": engine, "profile": profile,
+            "layer_gate": gate, "replay": replay, "service": service,
+            "launches_per_decode_iteration": per_iter}
+
+
 def phase_serve(device) -> dict:
     """The serving path at the full width of llama3.2-3b in float32 (and
     its float32-weights / bfloat16-cache engine run, and the measured
@@ -2361,16 +2655,20 @@ def phase_serve(device) -> dict:
     engine runs launch no kernel: prompts go through the eager chunked SSD
     of ``extend``, decode through the one-step recurrence; only
     ``prefill`` reaches the SSD kernel), then of phi-3-vision-4.2b through
-    ``inputs_embeds``. The launch counts of the result line sum every run
-    of the path: decode over llama's engine runs, the measured fleet's
-    serves and phi-3's decode steps and kernel engine run; flash over
-    llama's and phi-3's float32 prefills."""
+    ``inputs_embeds``, then of deepseek-v2-236b (MLA and MoE) at
+    DEEPSEEK_LAYERS layers. The launch counts of the result line sum every
+    run of the path: decode over llama's engine runs, the measured fleet's
+    serves, phi-3's decode steps and kernel engine run, and deepseek-v2's
+    engine run, replay and service; flash over llama's and phi-3's float32
+    prefills."""
     llama = _serve_arch(SERVE_ARCH, SERVE_LAYERS, "flash_attention", device)
     bf16 = _serve_bf16(device)
     mamba = _serve_arch(MAMBA_ARCH, MAMBA_LAYERS, "ssd_scan", device)
     phi = _serve_phi(device)
+    deepseek = _serve_deepseek(device)
     fleet = llama["fleet"]
     return {"llama": llama, "llama_bf16": bf16, "mamba": mamba, "phi": phi,
+            "deepseek": deepseek,
             "launches": {
                 "decode_attention":
                     sum(r["launches"]["decode_attention"]
@@ -2378,7 +2676,9 @@ def phase_serve(device) -> dict:
                     + sum(fleet[k]["launches"]["decode_attention"]
                           for k in ("one_replica", "two_replicas"))
                     + phi["decode"]["launches"]["decode_attention"]
-                    + phi["engine"]["launches"]["decode_attention"],
+                    + phi["engine"]["launches"]["decode_attention"]
+                    + sum(deepseek[k]["launches"]["decode_attention"]
+                          for k in ("engine", "replay", "service")),
                 "flash_attention":
                     llama["prefill"]["launches"]["flash_attention"]
                     + phi["prefill"]["launches"]["flash_attention"],
@@ -2555,6 +2855,55 @@ def phase_attention_times(serve: dict) -> dict:
     return at_main
 
 
+def phase_mla_decode_times(serve: dict) -> list:
+    """MLA's decode at DECODE_MLA_TIMES (B 8, Hq 128, Hkv 1, D 576, k is
+    v, seeded lengths; S 1024 and 8192): a float32 q over a float32 and
+    over a bfloat16 latent, and bfloat16 over bfloat16; CUDA-event times of
+    the kernel in turns with ``scaled_dot_product_attention`` (``enable_
+    gqa``, the same lengths as a mask; library, kernel, kernel, library)
+    where the library takes the inputs' types, and of the plain version,
+    beside the bound (the live latent rows read once: sum(len) x 576 x
+    itemsize at 3.35 TB/s, or the operations at the float32 rate, whichever
+    is larger); the plan, the blocks per SM, the profiler's device time per
+    call (split and combine summed) and the wrapper's host time per call."""
+    import torch
+
+    recs = []
+    for i, shape in enumerate(DECODE_MLA_TIMES):
+        for q_dtype, kv_dtype in (("float32", "float32"),
+                                  ("float32", "bfloat16"),
+                                  ("bfloat16", "bfloat16")):
+            inp = decode_inputs(shape, kv_dtype, seed=300 + i)
+            inp["q"] = inp["q"].to(getattr(torch, q_dtype))
+            lib = q_dtype == kv_dtype
+            order = ("library", "cuda", "cuda", "library") if lib \
+                else ("cuda", "cuda")
+            t = {how: [] for how in order}
+            for how in order:
+                t[how].append(_time_ms(
+                    lambda how=how: run_attention("decode_attention", inp,
+                                                  how), 20))
+            rec = {"kernel": "decode_attention", "case": "mla",
+                   "shape": list(shape), "q": q_dtype, "cache": kv_dtype,
+                   "kernel_ms": sum(t["cuda"]) / 2,
+                   "kernel_ms_runs": t["cuda"],
+                   "library_ms": sum(t["library"]) / 2 if lib else None,
+                   "library_ms_runs": t.get("library"),
+                   "plain_ms": _time_ms(lambda: run_attention(
+                       "decode_attention", inp, "plain"), 3, 1),
+                   "launches_per_decode_iteration":
+                       serve["deepseek"]["launches_per_decode_iteration"],
+                   **attention_bound("decode_attention", inp),
+                   **_decode_costs(inp)}
+            rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+            if lib:
+                rec["kernel_over_library"] = \
+                    rec["kernel_ms"] / rec["library_ms"]
+            emit(rec)
+            recs.append(rec)
+    return recs
+
+
 # the device kernel each flash launcher runs
 FLASH_DEVICE_KERNELS = {"flash_attention": {"cuda": "flash_attention_kernel",
                                             "first": "f32_first_kernel"},
@@ -2620,15 +2969,21 @@ def _device_ms_per_call(kern: list, calls: int) -> float:
 
 
 def _decode_costs(inp: dict, calls: int = 20) -> dict:
-    """The decode kernel's split plan, its device time per call from
+    """The decode kernel's plan (head groups, split, shared bytes) and the
+    occupancy calculator's blocks per SM, its device time per call from
     ``torch.profiler`` (the split and combine kernels summed) and its host
     time per call; the same two for the library call (every device kernel
-    it runs)."""
+    it runs) where it takes the inputs' types."""
     from repro_torch.kernels import decode_attention as da
 
-    rec = dict(zip(("n_split", "split_len"),
-                   da.kernel_plan(inp["q"], inp["k"])))
-    for how, key in (("cuda", ""), ("library", "library_")):
+    q, k = inp["q"], inp["k"]
+    plan = da.kernel_plan(q, k, inp["v"])
+    rec = {"n_split": plan.n_split, "split_len": plan.split_len,
+           "plan": plan._asdict(), "blocks_per_sm_occupancy": da.blocks_per_sm(plan, q.dtype,
+                                                       k.dtype, q.device)}
+    hows = (("cuda", ""), ("library", "library_")) \
+        if q.dtype == k.dtype else (("cuda", ""),)
+    for how, key in hows:
         def run(how=how):
             for _ in range(calls):
                 run_attention("decode_attention", inp, how)
@@ -2825,6 +3180,7 @@ def main(argv=None) -> int:
         return 0
     at_main = phase_times(ev, runs)
     at_main.update(phase_attention_times(serve))
+    phase_mla_decode_times(serve)
     at_main["ssd_scan"] = phase_ssd_times(serve)
     if "profile" not in phases:
         return 0

@@ -18,7 +18,10 @@ def _load_all():
         return
     _LOADED = True
     from . import (  # noqa: F401
+        deepseek_moe_16b,
+        deepseek_v2_236b,
         glm4_9b,
+        jamba_v0_1_52b,
         llama3_2_3b,
         mamba2_2_7b,
         paper_models,

@@ -109,14 +109,22 @@ def params_from_jax(tree, cfg, device, dtype=torch.float32):
     return model
 
 
+CACHE_LEAVES = ({"k", "v", "len"}, {"kv", "len"}, {"state", "len"})
+
+
 def cache_from_jax(caches, device):
     """A list of per-layer cache dicts with numpy leaves (``k``, ``v``,
-    ``len`` of an attention layer, float32 or bfloat16; ``state``, ``len``
-    of a Mamba layer) as the port's caches on ``device`` (``None`` =
-    CUDA), in the leaves' types."""
+    ``len`` of an attention layer, or ``kv``, ``len`` of an MLA layer,
+    float32 or bfloat16; ``state``, ``len`` of a Mamba layer) as the port's
+    caches on ``device`` (``None`` = CUDA), in the leaves' types. Any other
+    set of leaves (the int8 cache's scales) is refused."""
     from .timing import resolve_device
 
     dev = resolve_device(device)
+    for i, layer in enumerate(caches):
+        if set(layer) not in CACHE_LEAVES:
+            raise ValueError(f"cache layer {i} has leaves {sorted(layer)}, "
+                             f"not one of {[sorted(c) for c in CACHE_LEAVES]}")
     return [{k: _tensor(v, dev) for k, v in layer.items()}
             for layer in caches]
 

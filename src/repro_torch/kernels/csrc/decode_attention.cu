@@ -20,15 +20,24 @@
 // rate at that byte rate, so it computes on the CUDA cores in float32.
 //
 // Design ("flash-decoding"): the live prefix of each sequence is split over
-// blocks. Block (b * Hkv + g, j) serves all rep query heads of kv group g,
-// so each K/V row is read once per sequence (the property the TPU kernel
-// was built around), over positions [j * split_len, (j + 1) * split_len);
-// the host picks split_len and the number of splits from the shapes alone
-// (repro_torch/kernels/decode_attention.py::split_plan), so nothing on the
-// device is read back. A split that starts at or past the sequence's
+// blocks. Block ((b * Hkv + g) * n_hg + i, j) serves query heads
+// [i * hpb, min(rep, (i + 1) * hpb)) of kv group g over positions
+// [j * split_len, (j + 1) * split_len). hpb, the heads per block, is all
+// rep heads wherever their float32 q rows and p @ V sums fit a block (the
+// accumulator limit below and 227 KB of shared memory): then n_hg = 1 and
+// each K/V row is read once per sequence, the property the TPU kernel was
+// built around. Past that (MLA's absorbed decode: rep 128 over one latent
+// head at D 576) hpb is the largest multiple of kHeads that fits, and the
+// n_hg = ceil(rep / hpb) head groups each read the kv group's rows; heads
+// past rep in the last group are left out. The host picks hpb, split_len
+// and the number of splits from the shapes alone
+// (repro_torch/kernels/decode_attention.py::decode_plan), so nothing on
+// the device is read back, and the launcher refuses a plan that differs
+// from its own. A split that starts at or past the sequence's
 // length writes an empty partial and returns: stale rows past a length are
 // never read. Inside a block, tiles of kTile positions stream through a
-// ring of kStages shared-memory stages in their storage type, by 16-byte
+// ring of kStages shared-memory stages in their storage type (a K and a V
+// tile per stage, or one tile where K and V are one tensor), by 16-byte
 // cp.async.cg copies, one commit group per tile, so the next tiles load
 // while the current one is computed on; rows past the split's live end are
 // zero-filled (source size 0) and masked by position. Scores and products
@@ -171,20 +180,47 @@ __host__ __device__ inline int padded_heads(int rep) {
   return (rep + kHeads - 1) / kHeads * kHeads;
 }
 
-// Shared memory of one split block: the K/V ring in the cache's type (after
-// the last tile, the position groups' p @ V partials
-// [kHeads * kV][kThreads] in the same bytes), then float32 q rows
-// [rep][d], weights [kTile][padded rep], and the running max, sum and
-// rescale factor of each head.
+// Tiles per ring stage: K and V, or one tile where K and V are one tensor
+// (MLA's latent cache; a float32 K+V ring at D 576 would take 295 KB).
+__host__ __device__ inline int tiles_per_stage(bool shared) {
+  return shared ? 1 : 2;
+}
+
+// Shared memory of one split block serving `heads` query heads: the K/V
+// ring in the cache's type (after the last tile, the position groups'
+// p @ V partials [kHeads * kV][kThreads] in the same bytes), then float32
+// q rows [heads][d], weights [kTile][padded heads], and the running max,
+// sum and rescale factor of each head.
 template <typename T>
-size_t smem_bytes(int rep, int d) {
-  const size_t ring = sizeof(T) * 2 * kStages *
+size_t smem_bytes(int heads, int d, bool shared) {
+  const size_t ring = sizeof(T) * tiles_per_stage(shared) * kStages *
                       static_cast<size_t>(kTile) * d;
   const size_t red = sizeof(float) * kHeads * (16 / sizeof(T)) * kThreads;
-  const size_t floats = static_cast<size_t>(rep) * d +
-                        static_cast<size_t>(kTile) * padded_heads(rep) +
-                        3 * rep;
+  const size_t floats = static_cast<size_t>(heads) * d +
+                        static_cast<size_t>(kTile) * padded_heads(heads) +
+                        3 * heads;
   return (ring > red ? ring : red) + sizeof(float) * floats;
+}
+
+// Whether one block can serve `heads` query heads at head dim d: its
+// (kHeads heads, 16-byte chunk) p @ V units fit the threads' accumulators
+// and its shared memory fits a block.
+template <typename T>
+bool heads_fit(int heads, int d, bool shared) {
+  constexpr int kV = 16 / sizeof(T);
+  const int units = padded_heads(heads) / kHeads * (d / kV);
+  return units <= kThreads * (kMaxAcc / (kHeads * kV)) &&
+         smem_bytes<T>(heads, d, shared) <= static_cast<size_t>(kMaxSmem);
+}
+
+// Heads per block: all rep where they fit, else the largest multiple of
+// kHeads below rep that fits; 0 where none does.
+template <typename T>
+int plan_heads(int rep, int d, bool shared) {
+  if (heads_fit<T>(rep, d, shared)) return rep;
+  for (int h = (rep - 1) / kHeads * kHeads; h >= kHeads; h -= kHeads)
+    if (heads_fit<T>(h, d, shared)) return h;
+  return 0;
 }
 
 // A thread's share of a tile copy: the 16-byte chunks i = tid + j kThreads
@@ -196,13 +232,14 @@ struct CopyPlan {
 };
 
 // Copy cache rows [row0, row0 + kTile) of one kv head of K and of V (row
-// strides in elements) into shared tiles [kTile][d]; rows at or past
-// `limit` are zero-filled.
+// strides in elements) into shared tiles [kTile][d], or of K alone where
+// V is the same tensor; rows at or past `limit` are zero-filled.
 template <typename T>
 __device__ __forceinline__ void copy_tiles(T* kdst, T* vdst, const T* ksrc,
                                            const T* vsrc, long long k_stride,
                                            long long v_stride, int row0,
-                                           int limit, int d, CopyPlan cp) {
+                                           int limit, int d, bool shared,
+                                           CopyPlan cp) {
   constexpr int kV = 16 / sizeof(T);
   const int nch = d / kV;
   const T* kb = ksrc + row0 * k_stride;
@@ -212,7 +249,8 @@ __device__ __forceinline__ void copy_tiles(T* kdst, T* vdst, const T* ksrc,
     const bool live = row0 + r < limit;
     const int off = r * d + c * kV;
     cp_async16(kdst + off, live ? kb + r * k_stride + c * kV : ksrc, live);
-    cp_async16(vdst + off, live ? vb + r * v_stride + c * kV : vsrc, live);
+    if (!shared)
+      cp_async16(vdst + off, live ? vb + r * v_stride + c * kV : vsrc, live);
     r += cp.dr;
     c += cp.dc;
     if (c >= nch) {
@@ -249,7 +287,8 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, TQ* __restrict__ out,
                         float* __restrict__ part, int s_len, int split_len,
-                        int hq, int hkv, int d, float scale, Strides st) {
+                        int hq, int hkv, int hpb, int d, float scale,
+                        bool shared, Strides st) {
   constexpr int kV = 16 / sizeof(T);        // cache elements per chunk
   constexpr int kQV = 16 / sizeof(TQ);      // q elements per chunk
   constexpr int kUnits = kMaxAcc / (kHeads * kV);  // p @ V units a thread
@@ -258,9 +297,14 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   static_assert(kUnits >= 1, "a thread holds at least one unit");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rep = hq / hkv;
-  const int hp = padded_heads(rep);
-  const int b = blockIdx.x / hkv;
-  const int g = blockIdx.x - b * hkv;
+  const int n_hg = (rep + hpb - 1) / hpb;   // head groups per kv head
+  const int bg = blockIdx.x / n_hg;
+  const int hg = blockIdx.x - bg * n_hg;
+  const int b = bg / hkv;
+  const int g = bg - b * hkv;
+  const int h0 = g * rep + hg * hpb;        // the block's first head
+  const int nh = min(hpb, rep - hg * hpb);  // ... and its head count
+  const int hp = padded_heads(nh);
   const int split = blockIdx.y;
   const int n_split = gridDim.y;
   const int tid = threadIdx.x;
@@ -269,17 +313,18 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   const int nch = d / kV;                   // 16-byte chunks per cache row
   const int units = hp / kHeads * nch;      // (kHeads heads, chunk) units
   const int tile_elems = kTile * d;
-  const size_t ring_bytes = sizeof(T) * 2 * kStages * tile_elems;
+  const int stage_elems = tiles_per_stage(shared) * tile_elems;
+  const size_t ring_bytes = sizeof(T) * kStages * stage_elems;
   const size_t red_bytes = sizeof(float) * kHeads * kV * kThreads;
 
-  T* ring = reinterpret_cast<T*>(smem_raw);    // [kStages][2][kTile][d]
+  T* ring = reinterpret_cast<T*>(smem_raw);    // [kStages][1|2][kTile][d]
   float* red = reinterpret_cast<float*>(smem_raw);  // after the last tile
   float* qs = reinterpret_cast<float*>(
       smem_raw + (ring_bytes > red_bytes ? ring_bytes : red_bytes));
-  float* ps = qs + rep * d;                 // [kTile][hp]
-  float* run_m = ps + kTile * hp;           // [rep]
-  float* run_l = run_m + rep;               // [rep]
-  float* alpha = run_l + rep;               // [rep]
+  float* ps = qs + nh * d;                  // [kTile][hp]
+  float* run_m = ps + kTile * hp;           // [nh]
+  float* run_l = run_m + nh;                // [nh]
+  float* alpha = run_l + nh;                // [nh]
 
   const int len = max(0, min(lengths[b], s_len));
   const int start = split * split_len;
@@ -294,11 +339,11 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   if (start >= end) {   // nothing live here: an empty partial, or o = 0
     if (n_split == 1) {
       TQ* ob = out + static_cast<long long>(b) * hq * d +
-               static_cast<long long>(g) * rep * d;
-      for (int i = tid; i < rep * d; i += kThreads) store(ob + i, 0.0f);
+               static_cast<long long>(h0) * d;
+      for (int i = tid; i < nh * d; i += kThreads) store(ob + i, 0.0f);
     } else {
-      for (int r = 0; r < rep; ++r) {
-        float* w = part + ((static_cast<long long>(b) * hq + g * rep + r) *
+      for (int r = 0; r < nh; ++r) {
+        float* w = part + ((static_cast<long long>(b) * hq + h0 + r) *
                            n_split + split) * (d + 2);
         for (int i = tid; i < d + 2; i += kThreads)
           w[i] = i == 0 ? kNegInf : 0.0f;
@@ -314,25 +359,25 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < n_tiles) {
-      T* kt = ring + 2 * i * tile_elems;
+      T* kt = ring + i * stage_elems;
       copy_tiles(kt, kt + tile_elems, kb, vb, st.k_s, st.v_s,
-                 start + i * kTile, end, d, plan);
+                 start + i * kTile, end, d, shared, plan);
     }
     cp_async_commit();
   }
 
-  for (int i = tid; i < rep * (d / kQV); i += kThreads) {
+  for (int i = tid; i < nh * (d / kQV); i += kThreads) {
     const int r = i / (d / kQV);
     const int c = (i - r * (d / kQV)) * kQV;
     float f[kQV];
-    load_chunk(q + b * st.q_b + static_cast<long long>(g * rep + r) * st.q_h +
-                   c, f);
+    load_chunk(q + b * st.q_b + static_cast<long long>(h0 + r) * st.q_h + c,
+               f);
 #pragma unroll
     for (int e = 0; e < kQV; ++e) qs[r * d + c + e] = f[e];
   }
   // the padded heads' weights stay 0, so their p @ V sums stay 0
   for (int i = tid; i < kTile * hp; i += kThreads) ps[i] = 0.0f;
-  for (int r = tid; r < rep; r += kThreads) {
+  for (int r = tid; r < nh; r += kThreads) {
     run_m[r] = kNegInf;
     run_l[r] = 0.0f;
   }
@@ -349,22 +394,22 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   for (int it = 0; it < n_tiles; ++it) {
     const int nxt = it + kStages - 1;   // into the stage freed last round
     if (nxt < n_tiles) {
-      T* kt = ring + 2 * (nxt % kStages) * tile_elems;
+      T* kt = ring + (nxt % kStages) * stage_elems;
       copy_tiles(kt, kt + tile_elems, kb, vb, st.k_s, st.v_s,
-                 start + nxt * kTile, end, d, plan);
+                 start + nxt * kTile, end, d, shared, plan);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();       // tile `it` has landed
     __syncthreads();
-    const T* ks = ring + 2 * (it % kStages) * tile_elems;
-    const T* vs = ks + tile_elems;
+    const T* ks = ring + (it % kStages) * stage_elems;
+    const T* vs = shared ? ks : ks + tile_elems;
     const int t0 = start + it * kTile;
     const int nt = min(kTile, end - t0);   // live rows of this tile
 
     // scores: group grp dots positions grp + p kGroups (p < kPos) with
     // kHeads heads per pass, each K and q chunk read once per pass; the
     // group's 8 lanes then reduce-scatter the kDots sums
-    for (int r0 = 0; r0 < rep; r0 += kHeads) {
+    for (int r0 = 0; r0 < nh; r0 += kHeads) {
       float dot[kDots];                     // [p * kHeads + j]
 #pragma unroll
       for (int i = 0; i < kDots; ++i) dot[i] = 0.0f;
@@ -375,7 +420,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
           load_chunk(ks + (grp + p * kGroups) * d + c * kV, kf[p]);
 #pragma unroll
         for (int j = 0; j < kHeads; ++j) {
-          if (r0 + j < rep) {
+          if (r0 + j < nh) {
             const float* qr = qs + (r0 + j) * d + c * kV;
 #pragma unroll
             for (int e = 0; e < kV; e += 4) {
@@ -398,13 +443,13 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
         const int i = lg * kSums + s;
         const int r = r0 + i % kHeads;
         const int t = grp + i / kHeads * kGroups;
-        if (r < rep) ps[t * hp + r] = t < nt ? dot[s] * scale : kNegInf;
+        if (r < nh) ps[t * hp + r] = t < nt ? dot[s] * scale : kNegInf;
       }
     }
     __syncthreads();
 
     // online softmax: one warp per head, positions lane + 32 i per lane
-    for (int r = warp; r < rep; r += kWarps) {
+    for (int r = warp; r < nh; r += kWarps) {
       constexpr int kPer = kTile / 32;
       float x[kPer];
       float m_tile = kNegInf;
@@ -442,7 +487,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
           const int c = u - u / nch * nch;
 #pragma unroll
           for (int j = 0; j < kHeads; ++j) {
-            if (r0 + j < rep) {
+            if (r0 + j < nh) {
               const float a = alpha[r0 + j];
               if (a != 1.0f) {
 #pragma unroll
@@ -452,7 +497,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
           }
           const T* vc = vs + c * kV;
           const float* pc = ps + r0;
-          switch (min(kHeads, rep - r0)) {   // the unit's live heads
+          switch (min(kHeads, nh - r0)) {    // the unit's live heads
             case 1: pv_rows<1>(acc[i], pc, vc, hp, d, pg, n_pg, nt); break;
             case 2: pv_rows<2>(acc[i], pc, vc, hp, d, pg, n_pg, nt); break;
             case 3: pv_rows<3>(acc[i], pc, vc, hp, d, pg, n_pg, nt); break;
@@ -494,8 +539,8 @@ decode_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kHeads; ++j) {
         const int r = r0 + j;
-        if (r < rep) {
-          const long long h = static_cast<long long>(b) * hq + g * rep + r;
+        if (r < nh) {
+          const long long h = static_cast<long long>(b) * hq + h0 + r;
           if (n_split == 1) {
             const float l = run_l[r];
             const float den = l == 0.0f ? 1.0f : l;
@@ -570,26 +615,25 @@ decode_attention_combine_kernel(const float* __restrict__ part,
 template <typename TQ, typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* part, int n_batch, int s_len, int hq, int hkv,
-           int d, int n_split, int split_len, float scale, const Strides& st,
-           cudaStream_t stream) {
-  constexpr int kV = 16 / sizeof(T);
+           int d, int hpb, int smem, int n_split, int split_len, float scale,
+           bool shared, const Strides& st, cudaStream_t stream) {
   const int rep = hq / hkv;
-  const size_t bytes = smem_bytes<T>(rep, d);
-  const int units = padded_heads(rep) / kHeads * (d / kV);
-  if (bytes > static_cast<size_t>(kMaxSmem) ||
-      units > kThreads * (kMaxAcc / (kHeads * kV)) || n_split < 1 ||
-      split_len < 1 || (n_split > 1 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int heads = plan_heads<T>(rep, d, shared);
+  if (heads == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (hpb != heads ||
+      static_cast<size_t>(smem) != smem_bytes<T>(hpb, d, shared) ||
+      n_split < 1 || split_len < 1 || (n_split > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaFuncSetAttribute(
       decode_attention_kernel<TQ, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(n_batch * hkv, n_split);
-  decode_attention_kernel<TQ, T><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(n_batch * hkv * ((rep + hpb - 1) / hpb), n_split);
+  decode_attention_kernel<TQ, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       static_cast<TQ*>(out), static_cast<float*>(part), s_len, split_len, hq,
-      hkv, d, scale, st);
+      hkv, hpb, d, scale, shared, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   decode_attention_combine_kernel<TQ>
@@ -599,38 +643,62 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Run f with the (q, cache) element types of (q_dtype, dtype): 0 float32,
+// 1 bfloat16; cudaErrorInvalidValue for any other code.
+template <typename F>
+int with_types(int dtype, int q_dtype, F f) {
+  if (dtype == 0 && q_dtype == 0) return f(float(), float());
+  if (dtype == 1 && q_dtype == 1)
+    return f(__nv_bfloat16(), __nv_bfloat16());
+  if (dtype == 1 && q_dtype == 0) return f(float(), __nv_bfloat16());
+  if (dtype == 0 && q_dtype == 1) return f(__nv_bfloat16(), float());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype (the caches') and q_dtype: 0 float32, 1 bfloat16. Strides are in
-// elements; the head dimension is contiguous. `part` is a float32
-// workspace [B, Hq, n_split, D + 2] (unused, and may be null, when n_split
-// is 1). Launches the split kernel and, when n_split > 1, the combine
+// elements; the head dimension is contiguous. `shared` (nonzero) says that
+// k and v are one tensor with one set of strides, whose tiles are then
+// loaded once. hpb (heads per block) and smem (its dynamic shared bytes)
+// are the caller's plan: a launch whose numbers differ from the kernel's
+// own is refused. `part` is a float32 workspace [B, Hq, n_split, D + 2]
+// (unused, and may be null, when n_split is 1). Launches the split kernel and, when n_split > 1, the combine
 // kernel on `stream`. Returns a cudaError_t code (0 on success).
 extern "C" int decode_attention_launch(
     int dtype, int q_dtype, const void* q, const void* k, const void* v,
     const void* lengths, void* out, void* part, int n_batch, int s_len,
-    int hq, int hkv, int d, int n_split, int split_len, float scale,
-    long long q_b, long long q_h, long long k_b, long long k_s, long long k_h,
-    long long v_b, long long v_s, long long v_h, void* stream) {
+    int hq, int hkv, int d, int shared, int hpb, int smem, int n_split,
+    int split_len, float scale, long long q_b, long long q_h, long long k_b, long long k_s,
+    long long k_h, long long v_b, long long v_s, long long v_h,
+    void* stream) {
   if (n_batch <= 0 || hkv <= 0) return 0;
   const Strides st{q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && q_dtype == 0)
-    return launch<float, float>(q, k, v, lengths, out, part, n_batch, s_len,
-                                hq, hkv, d, n_split, split_len, scale, st, s);
-  if (dtype == 1 && q_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, lengths, out, part, n_batch, s_len, hq, hkv, d, n_split,
-        split_len, scale, st, s);
-  if (dtype == 1 && q_dtype == 0)
-    return launch<float, __nv_bfloat16>(q, k, v, lengths, out, part, n_batch,
-                                        s_len, hq, hkv, d, n_split, split_len,
-                                        scale, st, s);
-  if (dtype == 0 && q_dtype == 1)
-    return launch<__nv_bfloat16, float>(q, k, v, lengths, out, part, n_batch,
-                                        s_len, hq, hkv, d, n_split, split_len,
-                                        scale, st, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_types(dtype, q_dtype, [&](auto tq, auto t) {
+    using TQ = decltype(tq);
+    using T = decltype(t);
+    return launch<TQ, T>(q, k, v, lengths, out, part, n_batch, s_len, hq, hkv,
+                         d, hpb, smem, n_split, split_len, scale,
+                         shared != 0, st, s);
+  });
+}
+
+// Resident split blocks per SM of the (q_dtype, dtype) kernel at `smem`
+// dynamic shared bytes, from the card's occupancy calculator.
+extern "C" int decode_attention_blocks_per_sm(int dtype, int q_dtype,
+                                              int smem, int* out) {
+  return with_types(dtype, q_dtype, [&](auto tq, auto t) {
+    using TQ = decltype(tq);
+    using T = decltype(t);
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_attention_kernel<TQ, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, decode_attention_kernel<TQ, T>, kThreads, smem);
+    return static_cast<int>(err);
+  });
 }
 
 extern "C" const char* decode_attention_error_string(int code) {

@@ -9,20 +9,26 @@ over the positions t < lengths[b] (clamped to the cache length S). The
 kernels in ``csrc/decode_attention.cu`` replace the TPU kernel
 ``repro/kernels/decode_attention.py::decode_attention`` (body
 ``_decode_kernel``). Like it, one block serves all query heads of a kv
-group, so each K/V row of the cache is read once per sequence; running max,
+group wherever their q rows and sums fit a block, so each K/V row of the
+cache is read once per sequence; where they do not (MLA's absorbed decode:
+128 query heads over one latent kv head at D 576, which the TPU kernel
+holds as one ``(hq, d)`` VMEM scratch), :func:`decode_plan` gives each
+block a group of ``hpb`` heads and the ``n_hg`` groups of a kv head each
+read its rows; running max,
 sum and accumulator are float32, a masked score is -1e30 and its weight is
 zeroed after the exp, and the output divides by the sum where it is not 0.
 Like it, it takes q and a cache of different types (float32 weights over
 the bfloat16 cache that ``init_cache`` defaults to, or bfloat16 weights
 over a float32 cache), upcasting each operand on its own, and returns q's
 type. What bounds it on an H100 is bytes: the live K/V rows,
-sum(len) * Hkv * D * 2 * itemsize, at 3.35 TB/s.
+sum(len) * Hkv * D * 2 * itemsize, at 3.35 TB/s (half that where K and V
+are one tensor, as MLA's latent is).
 
 Unlike the TPU kernel, which walks S in order on one core, the card needs
 parallelism over S: :func:`split_plan` cuts the cache into ``n_split``
 ranges of ``split_len`` positions from the shapes and the card's SM count
 alone (no device value is read, so a call never syncs), one block per
-(sequence, kv head, range) streams its range through a ring of
+(sequence, kv head, head group, range) streams its range through a ring of
 asynchronous copies, and ``decode_attention_combine_kernel`` merges the
 ranges' partial (max, sum, accumulator) in a second launch. One wrapper
 call is one launch on :data:`LAUNCHES`, but two device kernels when
@@ -39,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -56,6 +63,15 @@ TILE = 32
 MIN_SPLIT_LEN = 64
 WAVES = 2
 BLOCKS_PER_SM = 4
+
+# the kernel's block (kThreads, kHeads, kMaxAcc, kStages, kMaxSmem in the
+# source): threads, heads per scoring pass and p @ V unit, float32 sums a
+# thread may hold, K/V ring stages, and shared bytes a block may use
+THREADS = 128
+UNIT_HEADS = 4
+MAX_ACC = 32
+STAGES = 2
+MAX_SMEM = 232_448
 
 LAUNCHES = {"decode_attention": 0}
 _LAUNCH_LOCK = threading.Lock()
@@ -82,16 +98,99 @@ def split_len_of(s: int, n_split: int) -> int:
     return max(TILE, -(-per // TILE) * TILE)
 
 
-def split_plan(b: int, hkv: int, s: int, n_sm: int) -> tuple[int, int]:
-    """(n_split, split_len) for B sequences of Hkv kv heads over a cache of
-    S positions on a card of ``n_sm`` SMs: enough ranges for WAVES waves of
-    BLOCKS_PER_SM blocks on every SM, none shorter than MIN_SPLIT_LEN, and
-    one range once B * Hkv blocks fill the card. The ranges cover S; the
-    last ones may start past it (their blocks write empty partials)."""
+def split_plan(b: int, hkv: int, s: int, n_sm: int,
+               n_hg: int = 1) -> tuple[int, int]:
+    """(n_split, split_len) for B sequences of Hkv kv heads, each served by
+    ``n_hg`` head groups, over a cache of S positions on a card of ``n_sm``
+    SMs: enough ranges for WAVES waves of BLOCKS_PER_SM blocks on every SM,
+    none shorter than MIN_SPLIT_LEN, and one range once B * Hkv * n_hg
+    blocks fill the card. The ranges cover S; the last ones may start past
+    it (their blocks write empty partials)."""
     cap = max(1, -(-s // MIN_SPLIT_LEN))
-    want = -(-WAVES * n_sm * BLOCKS_PER_SM // max(1, b * hkv))
+    want = -(-WAVES * n_sm * BLOCKS_PER_SM // max(1, b * hkv * n_hg))
     n_split = min(max(want, 1), cap)
     return n_split, split_len_of(s, n_split)
+
+
+def _padded(heads: int) -> int:
+    return -(-heads // UNIT_HEADS) * UNIT_HEADS
+
+
+def smem_bytes(heads: int, d: int, kv_dtype, shared: bool = False) -> int:
+    """Dynamic shared bytes of a block serving ``heads`` query heads
+    (``smem_bytes`` in the source): the ring in the cache's type (a K and
+    a V tile per stage, one tile where K and V are one tensor), or the
+    p @ V partials that reuse it, whichever is larger, then float32 q rows,
+    weights and three floats per head."""
+    size = kv_dtype.itemsize
+    ring = size * (1 if shared else 2) * STAGES * TILE * d
+    red = 4 * UNIT_HEADS * (16 // size) * THREADS
+    floats = heads * d + TILE * _padded(heads) + 3 * heads
+    return max(ring, red) + 4 * floats
+
+
+def heads_fit(heads: int, d: int, kv_dtype, shared: bool = False) -> bool:
+    """Whether one block holds ``heads`` query heads at head dim ``d``:
+    their (UNIT_HEADS heads, 16-byte chunk) p @ V units fit the threads'
+    MAX_ACC sums, and the block's shared bytes fit MAX_SMEM."""
+    vec = 16 // kv_dtype.itemsize
+    units = _padded(heads) // UNIT_HEADS * (d // vec)
+    return units <= THREADS * (MAX_ACC // (UNIT_HEADS * vec)) \
+        and smem_bytes(heads, d, kv_dtype, shared) <= MAX_SMEM
+
+
+class DecodePlan(NamedTuple):
+    """How one call runs: heads per block, head groups per kv head, the
+    split of S, each block's dynamic shared bytes, and the split grid
+    (B * Hkv * n_hg, n_split)."""
+    hpb: int
+    n_hg: int
+    n_split: int
+    split_len: int
+    smem_bytes: int
+    grid: tuple[int, int]
+
+    def heads(self, hq: int, hkv: int, x: int) -> range:
+        """The query heads block row ``x`` of the grid serves."""
+        rep = hq // hkv
+        bg, i = divmod(x, self.n_hg)
+        g = bg % hkv
+        return range(g * rep + i * self.hpb,
+                     g * rep + min(rep, (i + 1) * self.hpb))
+
+
+def decode_plan(b: int, hq: int, hkv: int, s: int, d: int, q_dtype,
+                kv_dtype, n_sm: int, shared: bool = False) -> DecodePlan:
+    """The plan of a call at q [b, hq, d] of ``q_dtype`` over caches
+    [b, s, hkv, d] of ``kv_dtype`` (``shared``: k and v are one tensor) on
+    a card of ``n_sm`` SMs, from the shapes alone: all ``rep = hq / hkv``
+    heads in one block where they fit (one head group, and the split plan
+    of the kernel without head groups), else the largest multiple of
+    UNIT_HEADS that fits."""
+    if q_dtype not in DTYPES or kv_dtype not in DTYPES:
+        raise TypeError(f"decode_attention takes float32 or bfloat16 q and "
+                        f"caches; got q {q_dtype}, cache {kv_dtype}")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} must be a multiple of 8 in "
+                         f"[8, {MAX_HEAD_DIM}]")
+    rep = hq // hkv
+    fits = [h for h in [rep, *range((rep - 1) // UNIT_HEADS * UNIT_HEADS, 0,
+                                    -UNIT_HEADS)]
+            if heads_fit(h, d, kv_dtype, shared)]
+    if not fits:
+        raise ValueError(f"no head group fits a block at D {d} over a "
+                         f"{kv_dtype} cache with separate K and V tensors "
+                         f"(its K/V ring alone takes "
+                         f"{smem_bytes(0, d, kv_dtype)} of {MAX_SMEM} "
+                         f"shared bytes)")
+    hpb = fits[0]
+    n_hg = -(-rep // hpb)
+    n_split, split_len = split_plan(b, hkv, s, n_sm, n_hg)
+    return DecodePlan(hpb, n_hg, n_split, split_len,
+                      smem_bytes(hpb, d, kv_dtype, shared),
+                      (b * hkv * n_hg, n_split))
 
 
 @functools.cache
@@ -106,11 +205,20 @@ def sm_count(device) -> int:
                      else dev.index)
 
 
-def kernel_plan(q, k_cache) -> tuple[int, int]:
-    """The split plan the kernel takes for these CUDA operands."""
-    b, _, _ = q.shape
+def shared_kv(k_cache, v_cache) -> bool:
+    """Whether k and v are one tensor (MLA's latent cache passed as both):
+    the same start, shape and strides."""
+    return k_cache.data_ptr() == v_cache.data_ptr() \
+        and k_cache.shape == v_cache.shape \
+        and k_cache.stride() == v_cache.stride()
+
+
+def kernel_plan(q, k_cache, v_cache) -> DecodePlan:
+    """The plan the kernel takes for these CUDA operands."""
+    b, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
-    return split_plan(b, hkv, s, sm_count(q.device))
+    return decode_plan(b, hq, hkv, s, d, q.dtype, k_cache.dtype,
+                       sm_count(q.device), shared_kv(k_cache, v_cache))
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, scale=None,
@@ -171,11 +279,29 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a library built from ``_SOURCE``."""
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.decode_attention_launch.argtypes = (
-        [ci] * 2 + [vp] * 6 + [ci] * 7 + [ctypes.c_float] + [ll] * 8 + [vp])
+        [ci] * 2 + [vp] * 6 + [ci] * 10 + [ctypes.c_float] + [ll] * 8
+        + [vp])
     lib.decode_attention_launch.restype = ci
+    lib.decode_attention_blocks_per_sm.argtypes = [ci, ci, ci, vp]
+    lib.decode_attention_blocks_per_sm.restype = ci
     lib.decode_attention_error_string.argtypes = [ci]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def blocks_per_sm(plan: DecodePlan, q_dtype, kv_dtype, device) -> int:
+    """Resident split blocks per SM under ``plan`` on ``device``, from the
+    card's occupancy calculator."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _lib().decode_attention_blocks_per_sm(
+            DTYPES[kv_dtype], DTYPES[q_dtype], plan.smem_bytes,
+            ctypes.byref(out))
+    if rc != 0:
+        msg = _lib().decode_attention_error_string(rc).decode()
+        raise RuntimeError(f"decode_attention occupancy query failed: CUDA "
+                           f"error {rc} ({msg})")
+    return out.value
 
 
 def _check_operand(name, x, dtype, device, dims):
@@ -201,8 +327,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
     than one range, ``decode_attention_combine_kernel`` on the current
     stream (no sync): q [B, Hq, D] and k/v caches [B, S, Hkv, D] (float32
     or bfloat16, the caches of one dtype, q of its own; D a multiple of 8
-    up to 576, D contiguous, Hq / Hkv x D up to 4096), lengths [B] int32
-    -> [B, Hq, D] in q's dtype."""
+    up to 576, D contiguous; k and v may be one tensor), lengths [B] int32
+    -> [B, Hq, D] in q's dtype, under :func:`decode_plan`."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -220,18 +346,16 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
         raise ValueError(f"caches must be [B, S, Hkv, D] = [{b}, S, Hkv, "
                          f"{d}] alike; got {tuple(k_cache.shape)} and "
                          f"{tuple(v_cache.shape)}")
-    if hkv < 1 or hq % hkv:
-        raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} must be a multiple of 8 in "
-                         f"[8, {MAX_HEAD_DIM}]")
     if not isinstance(lengths, torch.Tensor) or lengths.device != dev \
             or lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,) \
             or not lengths.is_contiguous():
         raise ValueError(f"lengths must be a contiguous int32 [{b}] tensor "
                          f"on {dev}")
+    shared = shared_kv(k_cache, v_cache)
+    plan = decode_plan(b, hq, hkv, s, d, q.dtype, kv_dtype,
+                       _sm_count(dev.index), shared)
+    n_split = plan.n_split
     lib = _lib()
-    n_split, split_len = split_plan(b, hkv, s, _sm_count(dev.index))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     part = torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
                        device=dev) if n_split > 1 else None
@@ -241,7 +365,9 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
             DTYPES[kv_dtype], DTYPES[q.dtype], q.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(), b, s,
-            hq, hkv, d, n_split, split_len, _scale(d, scale), q.stride(0),
+            hq, hkv, d, int(shared), plan.hpb, plan.smem_bytes, n_split,
+            plan.split_len,
+            _scale(d, scale), q.stride(0),
             q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3], stream)
     if rc != 0:
         msg = lib.decode_attention_error_string(rc).decode()

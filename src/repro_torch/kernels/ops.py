@@ -108,8 +108,13 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
 
 def flash_attention(q, k, v, causal: bool = True, scale=None):
     """Blocked GQA attention: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] ->
-    [B, Hq, Lq, D] in q's dtype; causal with offset Lk - Lq."""
+    [B, Hq, Lq, D] in q's dtype; causal with offset Lk - Lq. q, k and v
+    share one head dim D on every route, as in the TPU kernel."""
     path = route(q)
+    dims = tuple(x.shape[-1] for x in (q, k, v))
+    if len(set(dims)) != 1:
+        raise ValueError(f"flash_attention takes one head dim for q, k and "
+                         f"v; got {dims}")
     if path == "cuda":
         out = _fa.flash_attention_cuda(q, k, v, causal, scale)
     else:

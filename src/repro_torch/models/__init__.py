@@ -1,5 +1,5 @@
-"""The port's model stack (dense MHA/GQA, Mamba-2 and hybrid decoder LMs)
-in torch."""
+"""The port's model stack (MHA / GQA / MLA attention, dense or MoE FFNs,
+Mamba-2 and hybrid decoder LMs) in torch."""
 from .transformer import (  # noqa: F401
     ModelConfig,
     MoECfg,

@@ -1,4 +1,5 @@
-"""Attention mixers (MHA / GQA): train, prefill, decode and extend paths.
+"""Attention mixers (MHA / GQA / MLA): train, prefill, decode and extend
+paths.
 
 Two implementations of each path, chosen by ``impl``:
 
@@ -12,7 +13,24 @@ Two implementations of each path, chosen by ``impl``:
 Extending a cache by a chunk (chunked prefill) is plain torch under both
 impls, as in the JAX package.
 
-Caches are ``{"k": [B, S, Hkv, D], "v": [B, S, Hkv, D], "len": [B] int32}``.
+MLA (DeepSeek-V2) caches the shared compressed latent, kv_rank + rope_dim
+wide per token, and decodes in the absorbed form: each query head is
+projected into the latent space, so decode attends over one latent "kv
+head" that is both K and V (``decode_attention`` at Hq 128, Hkv 1, D 576
+for deepseek-v2-236b). As in the JAX package, the full-sequence paths
+(``attention_train``, ``attention_prefill``) expand the latent to per-head
+K (head_dim + rope_dim) and V (head_dim) and scale scores by
+1/sqrt(head_dim + rope_dim), while ``attention_decode`` and
+``attention_extend`` attend in the latent space and scale by
+1/sqrt(kv_rank + rope_dim); the two agree only where kv_rank equals
+head_dim. The flash kernel, like the TPU kernel, takes one head dim for q,
+k and v, so MLA's full-sequence paths run only under ``impl="eager"``;
+``impl="kernel"`` raises ``ValueError`` there (the JAX package's Pallas
+path fails on the same shapes). The serving paths never need them: they
+prefill through ``attention_extend``.
+
+Caches are ``{"k": [B, S, Hkv, D], "v": [B, S, Hkv, D], "len": [B] int32}``,
+or ``{"kv": [B, S, 1, kv_rank + rope_dim], "len"}`` for MLA.
 Unlike the JAX package, the port writes new K/V rows into the cache
 tensors IN PLACE (by index: one row per sequence at decode, a span at
 extend) and returns a new dict holding the same K/V tensors and a new
@@ -21,8 +39,8 @@ bit wherever the cache holds finite values. Caches are allocated with
 zeros (never ``torch.empty``): stale rows beyond ``len`` are read by the
 eager paths and multiplied by a zero weight, and ``0 * NaN`` is NaN.
 
-MLA (the DeepSeek-V2 latent cache) and the int8 cache come in a later
-slice of the port and raise ``NotImplementedError``.
+The int8 cache comes in a later slice of the port and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,15 +64,27 @@ def check_impl(impl: str) -> str:
 
 
 def _check_attn_kind(cfg) -> None:
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(f"MLA attention comes in {_LATER}")
-    if cfg.attn_kind not in ("mha", "gqa"):
+    if cfg.attn_kind not in ("mha", "gqa", "mla"):
         raise NotImplementedError(f"attention kind {cfg.attn_kind!r} is not "
                                   "ported")
 
 
+def check_full_sequence_impl(cfg, impl: str) -> str:
+    """``impl`` for a full-sequence path (train, prefill): MLA's q and k
+    are head_dim + rope_dim wide and its v head_dim, which the flash
+    kernel does not take, so MLA there needs ``impl="eager"``."""
+    if check_impl(impl) == "kernel" and cfg.attn_kind == "mla":
+        raise ValueError(
+            f"{cfg.name}: MLA's full-sequence attention has q/k head dim "
+            f"{cfg.head_dim + cfg.mla_rope_dim} (head_dim + rope_dim) and v "
+            f"head dim {cfg.head_dim}; the flash kernel, like the TPU "
+            f"kernel, takes one head dim for q, k and v, so run it with "
+            f"impl='eager' (the serving paths prefill through extend)")
+    return impl
+
+
 def _check_cache(cache) -> None:
-    if cache["k"].dtype == torch.int8:
+    if cache["kv" if "kv" in cache else "k"].dtype == torch.int8:
         raise NotImplementedError(f"the int8 KV cache comes in {_LATER}")
 
 
@@ -65,7 +95,10 @@ def _check_cache(cache) -> None:
 
 class Attention(nn.Module):
     """``wq`` (d, Hq*D), ``wk``/``wv`` (d, Hkv*D), with bias when
-    ``cfg.qkv_bias``; ``wo`` (Hq*D, d) without."""
+    ``cfg.qkv_bias``; ``wo`` (Hq*D, d) without. MLA: ``wq`` (d,
+    Hq*(D+rd)) and ``w_dkv`` (d, r+rd), with bias when ``cfg.qkv_bias``;
+    ``w_uk``/``w_uv`` (r, Hq*D) and ``wo`` without (r = kv_rank, rd =
+    rope_dim)."""
 
     def __init__(self, cfg, dtype=torch.float32, device=None,
                  generator=None):
@@ -73,6 +106,14 @@ class Attention(nn.Module):
         _check_attn_kind(cfg)
         d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         kw = dict(dtype=dtype, device=device, generator=generator)
+        if cfg.attn_kind == "mla":
+            r, rd = cfg.mla_kv_rank, cfg.mla_rope_dim
+            self.wq = Dense(d, hq * (hd + rd), cfg.qkv_bias, **kw)
+            self.w_dkv = Dense(d, r + rd, cfg.qkv_bias, **kw)
+            self.w_uk = Dense(r, hq * hd, False, **kw)
+            self.w_uv = Dense(r, hq * hd, False, **kw)
+            self.wo = Dense(hq * hd, d, False, **kw)
+            return
         self.wq = Dense(d, hq * hd, cfg.qkv_bias, **kw)
         self.wk = Dense(d, hkv * hd, cfg.qkv_bias, **kw)
         self.wv = Dense(d, hkv * hd, cfg.qkv_bias, **kw)
@@ -151,10 +192,26 @@ def _rope_heads(x, positions, cos, sin):
 
 
 def _project_qkv(p, x, cfg, positions, rope):
-    """Returns q/k/v as [B, H, L, D] views (and no MLA latent)."""
+    """Returns q/k/v as [B, H, L, D] views, and the MLA latent
+    [B, L, r+rd] for the cache (``None`` for MHA / GQA)."""
     b, l, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cos, sin = rope
+    if cfg.attn_kind == "mla":
+        r, rd = cfg.mla_kv_rank, cfg.mla_rope_dim
+        qf = dense(p.wq, x).reshape(b, l, hq, hd + rd)
+        q_nope, q_rope = qf[..., :hd], qf[..., hd:]
+        q_rope = _rope_heads(q_rope, positions, cos, sin)
+        ckv = dense(p.w_dkv, x)                      # [B, L, r+rd]
+        c, k_rope = ckv[..., :r], ckv[..., r:]
+        k_rope = _rope_heads(k_rope[:, :, None, :], positions, cos, sin)
+        k_nope = (c @ p.w_uk.w).reshape(b, l, hq, hd)
+        v = (c @ p.w_uv.w).reshape(b, l, hq, hd)
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, k_rope.expand(b, l, hq, rd)], -1)
+        latent = torch.cat([c, k_rope[:, :, 0, :]], -1)
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), \
+            latent
     q = dense(p.wq, x).reshape(b, l, hq, hd)
     k = dense(p.wk, x).reshape(b, l, hkv, hd)
     v = dense(p.wv, x).reshape(b, l, hkv, hd)
@@ -181,15 +238,19 @@ def attention_prefill(p, x, cfg, positions, rope, cache, impl="kernel"):
     """Prefill: full-sequence attention + fill the first L cache rows."""
     _check_cache(cache)
     b, l, _ = x.shape
-    if l > cache["k"].shape[1]:
+    rows = cache["kv" if cfg.attn_kind == "mla" else "k"].shape[1]
+    if l > rows:
         raise ValueError(f"a {l}-token prompt does not fit a cache of "
-                         f"{cache['k'].shape[1]} positions")
-    q, k, v, _ = _project_qkv(p, x, cfg, positions, rope)
+                         f"{rows} positions")
+    q, k, v, latent = _project_qkv(p, x, cfg, positions, rope)
     y = _sdpa(q, k, v, causal=True, offset=0, impl=impl)
     y = y.transpose(1, 2).reshape(b, l, -1)
+    ln = torch.full((b,), l, dtype=torch.int32, device=x.device)
+    if cfg.attn_kind == "mla":
+        cache["kv"][:, :l] = latent[:, :, None, :].to(cache["kv"].dtype)
+        return dense(p.wo, y), {"kv": cache["kv"], "len": ln}
     cache["k"][:, :l] = k.transpose(1, 2).to(cache["k"].dtype)
     cache["v"][:, :l] = v.transpose(1, 2).to(cache["v"].dtype)
-    ln = torch.full((b,), l, dtype=torch.int32, device=x.device)
     return dense(p.wo, y), {"k": cache["k"], "v": cache["v"], "len": ln}
 
 
@@ -209,6 +270,8 @@ def _scatter_cache(cache, new, pos):
 def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
     """One-token decode with KV cache. x: [B, 1, d] -> [B, 1, d]."""
     _check_cache(cache)
+    if cfg.attn_kind == "mla":
+        return _mla_decode(p, x, cfg, rope, cache, check_impl(impl))
     b = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cos, sin = rope
@@ -229,6 +292,39 @@ def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
     o = o.to(x.dtype)
     y = dense(p.wo, o.reshape(b, -1))[:, None, :]
     return y, {"k": kc, "v": vc, "len": lengths}
+
+
+def _mla_decode(p, x, cfg, rope, cache, impl):
+    """MLA decode in the absorbed form: q_nope projected into the latent
+    space beside the rotated q_rope, the new latent row written in place,
+    one attention over the latent as both K and V (Hkv 1, D r+rd), and
+    the latent output taken up by ``w_uv``."""
+    b = x.shape[0]
+    hq, hd = cfg.n_heads, cfg.head_dim
+    r, rd = cfg.mla_kv_rank, cfg.mla_rope_dim
+    cos, sin = rope
+    pos = cache["len"]
+    x1 = x[:, 0, :]
+    qf = dense(p.wq, x1).reshape(b, hq, hd + rd)
+    q_nope, q_rope = qf[..., :hd], qf[..., hd:]
+    q_rope = apply_rope(q_rope, pos[:, None], cos, sin)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope, p.w_uk.w.reshape(r, hq, hd))
+    q_eff = torch.cat([q_lat, q_rope], -1)           # [B, Hq, r+rd]
+    ckv = dense(p.w_dkv, x1)
+    c_new, kr_new = ckv[..., :r], ckv[..., r:]
+    kr_new = apply_rope(kr_new[:, None, :], pos[:, None], cos, sin)[:, 0]
+    lat_new = torch.cat([c_new, kr_new], -1)[:, None, :]   # [B, 1, r+rd]
+    kv = _scatter_cache(cache["kv"], lat_new, pos)
+    lengths = pos + 1
+    if impl == "kernel":
+        o = ops.decode_attention(q_eff, kv, kv, lengths)   # q unrounded
+    else:
+        o = _xla_decode(q_eff, kv, kv, lengths)
+    o = o.to(x.dtype)
+    y = torch.einsum("bhr,rhd->bhd", o[..., :r],
+                     p.w_uv.w.reshape(r, hq, hd))
+    return dense(p.wo, y.reshape(b, -1))[:, None, :], \
+        {"kv": kv, "len": lengths}
 
 
 def _promoted(q, cache):
@@ -273,6 +369,25 @@ def attention_extend(p, x, cfg, rope, cache, impl="kernel", length=None):
     cos, sin = rope
     off = cache["len"]                                   # [B]
     positions = off[:, None] + torch.arange(l, device=x.device)[None, :]
+    new_len = (off + adv).to(torch.int32)
+    if cfg.attn_kind == "mla":
+        r, rd = cfg.mla_kv_rank, cfg.mla_rope_dim
+        qf = dense(p.wq, x).reshape(b, l, hq, hd + rd)
+        q_nope, q_rope = qf[..., :hd], qf[..., hd:]
+        q_rope = _rope_heads(q_rope, positions, cos, sin)
+        q_lat = torch.einsum("blhd,rhd->blhr", q_nope,
+                             p.w_uk.w.reshape(r, hq, hd))
+        q_eff = torch.cat([q_lat, q_rope], -1)           # [B, L, Hq, r+rd]
+        ckv = dense(p.w_dkv, x)
+        c, k_rope = ckv[..., :r], ckv[..., r:]
+        k_rope = _rope_heads(k_rope[:, :, None, :], positions, cos, sin)
+        lat = torch.cat([c, k_rope[:, :, 0, :]], -1)
+        kv = _scatter_span(cache["kv"], lat[:, :, None, :], off)
+        o = _xla_extend(q_eff.transpose(1, 2), kv, kv, off, l)
+        y = torch.einsum("bhlr,rhd->bhld", o[..., :r].to(x.dtype),
+                         p.w_uv.w.reshape(r, hq, hd))
+        y = y.transpose(1, 2).reshape(b, l, -1)
+        return dense(p.wo, y), {"kv": kv, "len": new_len}
     q = dense(p.wq, x).reshape(b, l, hq, hd)
     k = dense(p.wk, x).reshape(b, l, hkv, hd)
     v = dense(p.wv, x).reshape(b, l, hkv, hd)
@@ -280,7 +395,6 @@ def attention_extend(p, x, cfg, rope, cache, impl="kernel", length=None):
     k = _rope_heads(k, positions, cos, sin)
     kc = _scatter_span(cache["k"], k, off)
     vc = _scatter_span(cache["v"], v, off)
-    new_len = (off + adv).to(torch.int32)
     o = _xla_extend(q, kc, vc, off, l)                   # [B, Hq, L, hd]
     y = o.to(x.dtype).transpose(1, 2).reshape(b, l, -1)
     return dense(p.wo, y), {"k": kc, "v": vc, "len": new_len}
@@ -326,11 +440,17 @@ def _xla_extend(q, k_cache, v_cache, off, l):
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                     device=None):
-    """Zero-filled ``{"k", "v", "len"}`` on ``device`` (resolved by the
-    caller)."""
+    """Zero-filled ``{"k", "v", "len"}`` (MLA: ``{"kv", "len"}``) on
+    ``device`` (resolved by the caller)."""
     _check_attn_kind(cfg)
     if dtype == torch.int8:
         raise NotImplementedError(f"the int8 KV cache comes in {_LATER}")
+    if cfg.attn_kind == "mla":
+        width = cfg.mla_kv_rank + cfg.mla_rope_dim
+        return {"kv": torch.zeros((batch, max_len, 1, width), dtype=dtype,
+                                  device=device),
+                "len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),

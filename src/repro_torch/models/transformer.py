@@ -1,6 +1,6 @@
-"""Decoder-only LMs from one config: dense MHA / GQA, Mamba-2 and hybrid
-attention + Mamba-2 stacks (RMSNorm or LayerNorm, gated or ungated FFN or
-none, tied or untied head, optional QKV bias).
+"""Decoder-only LMs from one config: dense MHA / GQA / MLA, Mamba-2 and
+hybrid attention + Mamba-2 stacks (RMSNorm or LayerNorm, gated or ungated
+FFN, MoE FFN or none, tied or untied head, optional QKV bias).
 
 The model is a tree of :class:`torch.nn.Module` whose parameter names
 follow the JAX package's pytree paths (``blocks.3.attn.wq.w``), with dense
@@ -24,10 +24,13 @@ as the search's entry points do) and refuses tensors that lie elsewhere,
 so nothing runs on the CPU unless the caller asks. Attention caches are
 updated in place (see :mod:`.attention`); a Mamba layer returns a new
 state (see :mod:`.mamba2`). Layer ``i`` mixes with attention or Mamba-2 as
-``cfg.mixer_kind(i)`` says.
+``cfg.mixer_kind(i)`` says, and its FFN is dense, MoE (:mod:`.moe`) or
+none as ``cfg.ffn_kind(i)`` says. MLA's ``forward`` and ``prefill`` run
+only under ``impl="eager"`` (see :mod:`.attention`); its serving paths
+(``extend``, ``decode_step``) take either impl.
 
-MoE FFNs, MLA, encoder-decoder models and the scan-over-layers entry
-points come in later slices and raise ``NotImplementedError``.
+Encoder-decoder models and the scan-over-layers entry points come in
+later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from .attention import (
     attention_extend,
     attention_prefill,
     attention_train,
+    check_full_sequence_impl,
     check_impl,
     init_attn_cache,
 )
@@ -67,6 +71,7 @@ from .mamba2 import (
     mamba_prefill,
     mamba_train,
 )
+from .moe import MoE, apply_moe
 
 _LATER = "a later slice of the port"
 
@@ -124,17 +129,13 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this slice does not
-    port."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE FFNs come in {_LATER}")
+    """Raise ``NotImplementedError`` for a family the port does not
+    run yet."""
     if cfg.mixer not in ("attn", "mamba", "hybrid"):
         raise NotImplementedError(f"mixer {cfg.mixer!r} is not ported")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(f"MLA attention comes in {_LATER}")
     if cfg.encoder_layers > 0 or cfg.cross_attention:
         raise NotImplementedError(f"encoder-decoder models come in {_LATER}")
-    if _has_attention(cfg) and cfg.attn_kind not in ("mha", "gqa"):
+    if _has_attention(cfg) and cfg.attn_kind not in ("mha", "gqa", "mla"):
         raise NotImplementedError(f"attention kind {cfg.attn_kind!r} is not "
                                   "ported")
 
@@ -178,7 +179,8 @@ class FFN(nn.Module):
 
 class Block(nn.Module):
     """``norm1`` and ``attn`` or ``mamba`` (as ``cfg.mixer_kind(i)``
-    says), then ``norm2`` and ``ffn`` where ``cfg.d_ff > 0``."""
+    says), then ``norm2`` and ``moe`` or ``ffn``, or neither (as
+    ``cfg.ffn_kind(i)`` says)."""
 
     def __init__(self, cfg, i, dtype, device, generator):
         super().__init__()
@@ -187,8 +189,12 @@ class Block(nn.Module):
             self.attn = Attention(cfg, dtype, device, generator)
         else:
             self.mamba = Mamba(cfg, dtype, device, generator)
-        if cfg.d_ff > 0:
+        kind = cfg.ffn_kind(i)
+        if kind != "none":
             self.norm2 = _norm_module(cfg, dtype, device)
+        if kind == "moe":
+            self.moe = MoE(cfg, dtype, device, generator)
+        elif kind == "dense":
             self.ffn = FFN(cfg, dtype, device, generator)
 
 
@@ -258,9 +264,12 @@ def _ffn_apply(p, cfg, x):
 
 
 def _ffn_residual(blk, cfg, x):
-    if cfg.d_ff <= 0:
+    if not hasattr(blk, "norm2"):
         return x
-    return x + _ffn_apply(blk.ffn, cfg, _norm(cfg, blk.norm2, x))
+    h = _norm(cfg, blk.norm2, x)
+    if hasattr(blk, "moe"):
+        return x + apply_moe(blk.moe, h, cfg)
+    return x + _ffn_apply(blk.ffn, cfg, h)
 
 
 def _logits(params, cfg, x):
@@ -292,7 +301,7 @@ def forward(params, cfg: ModelConfig, tokens=None, impl="eager", device=None,
     """Full-sequence forward -> logits [B, L, vocab]. ``inputs_embeds``
     [B, L, d_model], where given, takes the place of the embedded
     ``tokens``."""
-    check_impl(impl)
+    check_full_sequence_impl(cfg, impl)
     dev = _check_device(device, params,
                         *_inputs(cfg, tokens, inputs_embeds))
     with torch.no_grad():
@@ -335,7 +344,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache, impl="kernel",
     """Fill caches with the prompt; returns (last logits [B, vocab],
     cache). ``inputs_embeds`` [B, L, d_model], where given, takes the place
     of the embedded ``tokens`` (pass ``tokens=None``)."""
-    check_impl(impl)
+    check_full_sequence_impl(cfg, impl)
     dev = _check_device(device, params,
                         *_inputs(cfg, tokens, inputs_embeds),
                         *_cache_tensors(cache))
@@ -394,23 +403,30 @@ def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
         return _logits(params, cfg, last), new_cache
 
 
+def _row_keys(layer) -> tuple[str, ...]:
+    """The keys of an attention layer's cache rows: ``k`` and ``v``, or
+    MLA's ``kv``."""
+    return ("kv",) if "kv" in layer else ("k", "v")
+
+
 def _save_slots(layer):
     """What a decode step may overwrite in one layer's cache: each slot's
-    ``len`` and its K/V rows at the write position (clamped into the
-    cache). A Mamba layer's decode returns a new state, so its old state
-    is kept as it is."""
+    ``len`` and its cache rows (K/V, or MLA's latent) at the write position
+    (clamped into the cache). A Mamba layer's decode returns a new state,
+    so its old state is kept as it is."""
     if "state" in layer:
         return dict(layer)
-    at = layer["len"].clamp(0, layer["k"].shape[1] - 1)
+    keys = _row_keys(layer)
+    at = layer["len"].clamp(0, layer[keys[0]].shape[1] - 1)
     rows = torch.arange(at.shape[0], device=at.device)
-    return {"at": at, "k": layer["k"][rows, at], "v": layer["v"][rows, at],
-            "len": layer["len"]}
+    return {"at": at, "len": layer["len"],
+            **{key: layer[key][rows, at] for key in keys}}
 
 
 def _mask_cache(old, new, active):
     """Freeze the cache rows of inactive slots (requests still prefilling
     in other iterations must not be disturbed by the batched decode): put
-    back, by index, the K/V rows the step wrote for them and their
+    back, by index, the cache rows the step wrote for them and their
     ``len``; of a Mamba layer, keep their old state rows and ``len``."""
     if active is None:
         return new
@@ -420,10 +436,11 @@ def _mask_cache(old, new, active):
                 "len": torch.where(active, new["len"], old["len"])}
     rows = torch.arange(active.shape[0], device=active.device)
     keep = active[:, None, None]
-    for key in ("k", "v"):
+    keys = _row_keys(new)
+    for key in keys:
         c = new[key]
         c[rows, old["at"]] = torch.where(keep, c[rows, old["at"]], old[key])
-    return {"k": new["k"], "v": new["v"],
+    return {**{key: new[key] for key in keys},
             "len": torch.where(active, new["len"], old["len"])}
 
 

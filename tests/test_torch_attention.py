@@ -520,24 +520,43 @@ DECODE_CUDA_CASES = [c + (None,) for c in DECODE_CASES] + [
     (5, 6, 2, 20, 32, "edges"), (6, 4, 1, 300, 64, "edges"),
     (None, 32, 32, 8192, 32, "edges"),
     (8, 32, 32, 1024, 96, None)]          # phi-3-vision's decode: D 96, rep 1
+# MLA's absorbed decode, k and v one tensor (the latent): deepseek-v2's
+# 128 query heads over one latent head at D 576 (32 head groups of 4) at
+# S 1024, S 8192 and the split edges; a rep that no head group divides
+# (6 = 4 + 2); a GQA rep x D just past what one block holds (8 x 576); and
+# the reduced config's shape (Hq 4, D 48: one head group)
+MLA_CUDA_CASES = [
+    (8, 128, 1, 1024, 576, None), (8, 128, 1, 8192, 576, None),
+    (8, 128, 1, 1024, 576, "edges"), (2, 6, 1, 96, 576, None),
+    (2, 16, 2, 100, 576, None), (2, 4, 1, 96, 48, None)]
+DECODE_CUDA_CASES += MLA_CUDA_CASES
 
 
 def _cuda_decode_inputs(device, b, hq, hkv, s, d, lengths):
-    """Seeded float32 decode inputs on ``device`` and the kernel's split
-    plan; B = None fills the card (one range)."""
+    """Seeded float32 decode inputs on ``device`` (for an MLA case the
+    caches are one tensor) and the kernel's split plan; B = None fills the
+    card (one range)."""
     n_sm = da.sm_count(device)
+    shared = (b, hq, hkv, s, d, lengths) in MLA_CUDA_CASES
     fill = b is None
     if fill:
         b = -(-da.WAVES * da.BLOCKS_PER_SM * n_sm // hkv)
     q, kc, vc, lens = _decode_inputs(s + b, b, hq, hkv, s, d)
-    n_split, split_len = da.split_plan(b, hkv, s, n_sm)
-    assert n_split == 1 or not fill
+    plan = da.decode_plan(b, hq, hkv, s, d, torch.float32, torch.float32,
+                          n_sm, shared)
+    assert plan.n_split == 1 or not fill
     if lengths == "edges":
-        lens = _edge_lengths(b, s, split_len)
-    return (torch.as_tensor(q, device=device),
-            torch.as_tensor(kc, device=device),
-            torch.as_tensor(vc, device=device),
-            torch.as_tensor(lens, device=device), n_split)
+        lens = _edge_lengths(b, s, plan.split_len)
+    kc = torch.as_tensor(kc, device=device)
+    return (torch.as_tensor(q, device=device), kc,
+            kc if shared else torch.as_tensor(vc, device=device),
+            torch.as_tensor(lens, device=device), plan.n_split)
+
+
+def _caches_to(kc, vc, dtype):
+    """Both caches in ``dtype``, still one tensor where they were one."""
+    k2 = kc.to(getattr(torch, dtype))
+    return k2, (k2 if vc is kc else vc.to(getattr(torch, dtype)))
 
 
 @pytest.mark.cuda
@@ -555,7 +574,8 @@ def test_cuda_decode_mixed_types(cuda_device, b, hq, hkv, s, d, lengths,
     q, kc, vc, lens, n_split = _cuda_decode_inputs(cuda_device, b, hq, hkv,
                                                    s, d, lengths)
     q = q.to(getattr(torch, q_dtype))
-    kc, vc = (a.to(getattr(torch, kv_dtype)) for a in (kc, vc))
+    kc, vc = _caches_to(kc, vc, kv_dtype)
+    n_split = da.kernel_plan(q, kc, vc).n_split
     got = ops.decode_attention(q, kc, vc, lens)
     want = da.decode_attention_plain(q, kc, vc, lens)
     split = da.decode_attention_plain(q, kc, vc, lens, n_split=n_split)
@@ -578,7 +598,9 @@ def test_cuda_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
                                    dtype, tol):
     q, kc, vc, lens, n_split = _cuda_decode_inputs(cuda_device, b, hq, hkv,
                                                    s, d, lengths)
-    q, kc, vc = (a.to(getattr(torch, dtype)) for a in (q, kc, vc))
+    q = q.to(getattr(torch, dtype))
+    kc, vc = _caches_to(kc, vc, dtype)
+    n_split = da.kernel_plan(q, kc, vc).n_split
     before = ops.launch_counts()["decode_attention"]
     got = ops.decode_attention(q, kc, vc, lens)
     want = da.decode_attention_plain(q, kc, vc, lens)
@@ -590,3 +612,58 @@ def test_cuda_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
                                rtol=tol)
     empty = lens == 0
     assert not got[empty].any()
+
+
+# the shapes and type pairs (q, cache) whose decode outputs are pinned:
+# llama3.2-3b's decode with seeded lengths and at the split edges, and
+# phi-3-vision's (D 96, rep 1)
+DECODE_DIGEST_SHAPES = [(8, 24, 8, 1024, 128, None),
+                        (8, 24, 8, 1024, 128, "edges"),
+                        (8, 32, 32, 1024, 96, None)]
+DECODE_DIGEST_TYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+                       ("float32", "bfloat16")]
+
+
+def _decode_digest(device, shape, types):
+    """sha256 of the decode kernel's output at seeded inputs of ``shape``
+    with q and the caches of ``types``."""
+    q, kc, vc, lens, _ = _cuda_decode_inputs(device, *shape)
+    q = q.to(getattr(torch, types[0]))
+    kc, vc = _caches_to(kc, vc, types[1])
+    out = da.decode_attention_cuda(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    return _digest(out)
+
+
+# sha256 of the decode kernel's output bytes, recorded on an H100 (sm_90a)
+# from the kernel as it was before query-head groups were added: at every
+# shape it took then, the head groups leave the plan, the blocks and the
+# arithmetic as they were
+DECODE_DIGESTS = {
+    ((8, 24, 8, 1024, 128, None), ('float32', 'float32')):
+        "0a4eca4e08864ca87307003bc972c95e36a7e25201fca6d89ab9edd9d55b7f9e",
+    ((8, 24, 8, 1024, 128, None), ('bfloat16', 'bfloat16')):
+        "6d3acaec0d1e2ee5f9057aff95726b331d3c032dbfa6ad28577f5022078e9e34",
+    ((8, 24, 8, 1024, 128, None), ('float32', 'bfloat16')):
+        "d11e502c4f3b2faac934aa9e461b5e4ccd0731f7ac1e8be505528c454c2da522",
+    ((8, 24, 8, 1024, 128, 'edges'), ('float32', 'float32')):
+        "30b1442b03c5a0b7d591eafce901160457b34a488fd2a5802729e334a7f3847d",
+    ((8, 24, 8, 1024, 128, 'edges'), ('bfloat16', 'bfloat16')):
+        "9e31b8f61b2968ebaca6eb62bd6e1600c194fa57cf0262a891a95adbabc8607e",
+    ((8, 24, 8, 1024, 128, 'edges'), ('float32', 'bfloat16')):
+        "091ffa261f5af30c2ff565891680cc080112a0e4e77d5c4d24774afbeaf4d431",
+    ((8, 32, 32, 1024, 96, None), ('float32', 'float32')):
+        "b30c3ea2a0fd4f757881a811ed97cbe511a5e851b7e0d5fc5bfa67e491100bca",
+    ((8, 32, 32, 1024, 96, None), ('bfloat16', 'bfloat16')):
+        "e1b3c12b4edce855a49e26001e440fa4869334a9fcad907c869b7a7709938da4",
+    ((8, 32, 32, 1024, 96, None), ('float32', 'bfloat16')):
+        "53d1508ad7597e69afd23d243b2bd9ee3171be94bf9192a0f553409fd40083c5",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", DECODE_DIGEST_TYPES)
+@pytest.mark.parametrize("shape", DECODE_DIGEST_SHAPES)
+def test_cuda_decode_digests(cuda_device, shape, types):
+    digest = _decode_digest(cuda_device, shape, types)
+    assert digest == DECODE_DIGESTS[(shape, types)], digest

@@ -3,7 +3,9 @@ identical weights (``params_from_jax``) and inputs, at reduced configs.
 
 Two models: ``mamba2-2.7b``'s ``reduced()`` (2 Mamba layers, no FFN) and
 a hybrid, ``jamba-v0.1-52b``'s ``reduced()`` without its MoE FFNs on both
-sides (4 layers, attention at index 2, dense gated FFNs, untied head).
+sides (4 layers, attention at index 2, dense gated FFNs, untied head);
+and jamba as published (MoE FFNs on the odd layers) through the same
+checks.
 The JAX package initialises ``a_log`` and ``dt_bias`` to zeros, which
 gives every head the same decay; the tree both sides use overwrites them
 with seeded values, so a per-head error shows. ``forward``, ``prefill``,
@@ -44,10 +46,12 @@ CPU = "cpu"
 
 
 def _configs(name):
-    """(JAX cfg, port cfg) of a reduced model: mamba2-2.7b from both
-    registries, the hybrid as jamba's reduced config without MoE."""
-    if name == "mamba2-2.7b":
-        return j_archs()[name].reduced(), t_configs.get(name).reduced()
+    """(JAX cfg, port cfg) of a reduced model: mamba2-2.7b and jamba (as
+    published, with MoE) from both registries, the hybrid as jamba's
+    reduced config without MoE."""
+    if name in ("mamba2-2.7b", "jamba"):
+        arch = "jamba-v0.1-52b" if name == "jamba" else name
+        return j_archs()[arch].reduced(), t_configs.get(arch).reduced()
     j_cfg = dataclasses.replace(j_archs()["jamba-v0.1-52b"].reduced(),
                                 moe=None)
     return j_cfg, t_models.ModelConfig(**dataclasses.asdict(j_cfg))
@@ -107,6 +111,10 @@ def test_reduced_configs():
 @pytest.mark.parametrize("impl,j_impl", IMPLS)
 @pytest.mark.parametrize("name", MODELS)
 def test_serving_paths_match_jax(name, impl, j_impl):
+    _check_serving_paths(name, impl, j_impl)
+
+
+def _check_serving_paths(name, impl, j_impl):
     j_cfg, j_params, cfg, params = _model(name)
     rng = np.random.default_rng(len(name))
     toks = rng.integers(0, cfg.vocab, size=(2, 12))
@@ -238,11 +246,9 @@ def test_params_from_jax_checks_a_mamba_tree():
         params_from_jax(tree, cfg, CPU)
 
 
-def test_moe_hybrid_is_still_refused():
-    """jamba as published has MoE FFNs, which come in a later slice."""
-    j_cfg = j_archs()["jamba-v0.1-52b"].reduced()
-    fields = dataclasses.asdict(j_cfg)
-    fields["moe"] = t_models.MoECfg(**fields["moe"])
-    cfg = t_models.ModelConfig(**fields)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_models.init_model(cfg, device=CPU)
+def test_moe_hybrid_as_published_matches_jax():
+    """jamba as published, its MoE FFNs on the odd layers, runs every
+    serving path within REL of the JAX package on both impls (the checks
+    of ``test_serving_paths_match_jax``)."""
+    for impl, j_impl in IMPLS:
+        _check_serving_paths("jamba", impl, j_impl)

@@ -123,7 +123,8 @@ def sweep(da, spec, plans) -> None:
                        "min_split_len": da.MIN_SPLIT_LEN,
                        "default": plan is None, "shape": list(shape),
                        "q": q_dtype, "cache": kv_dtype,
-                       "plan": da.kernel_plan(inp["q"], inp["k"]),
+                       "plan": da.kernel_plan(inp["q"], inp["k"],
+                                               inp["v"])._asdict(),
                        "max_abs_err": err}
                 # the library call takes one type: same-type pairs only
                 hows = (("cuda", "kernel"), ("library", "library")) \
