@@ -108,7 +108,25 @@ Phases — any failure raises and the script exits non-zero:
            bit in schedule and priced timings, and a 2-replica round-robin
            fleet serving each request once, each replica equal to a direct
            serve of its sub-stream, 28 decode launches per decode
-           iteration throughout. Then llama3.2-3b in bfloat16
+           iteration throughout. On the same weights, llama's int8 KV
+           cache (``int8_cache``): a 2 x 512 ``prefill`` into an int8
+           cache through the flash kernel (28 launches), every layer's
+           int8 rows and scales bit for bit the host quantizer's on the
+           float K/V the prefill gave it, then 16 greedy decode steps
+           with no decode launch and no decode dispatch (the reference
+           routes an int8 cache around the kernel), scales positive,
+           logits finite, the cache (D + 4) / 4D of a float32 cache's
+           bytes; the logit gap and the greedy tokens against the same
+           tokens over a float32 cache printed, and the decode-step walls
+           (medians of INT8_TIMED warm steps of each cache, in turns).
+           Then scan over layers (``scanned``): the blocks' weights
+           stacked once, ``prefill_scanned`` (28 flash launches) and 16
+           ``decode_step_scanned`` steps (28 decode launches each) bit
+           for bit ``prefill``'s and ``decode_step``'s logits and caches,
+           in turns with them (where cuBLAS parts the two, the record
+           names the layer, the tensor and the weights' alignments, and
+           the gate is SCAN_REL of the largest logit); the stacked copy
+           is freed. Then llama3.2-3b in bfloat16
            weights and cache: ``prefill`` of 2 x 2048 tokens through the
            bfloat16 flash kernel (28 launches) and eagerly, the kernel
            held to its plain version within 2e-2 of the largest value on
@@ -127,7 +145,9 @@ Phases — any failure raises and the script exits non-zero:
            is held to the eager SSD within 1e-4 on the prefill's own
            activations, and its logits and states against
            ``impl="eager"`` and ``extend`` within SPREAD_FACTOR x the
-           rounding spread measured in the run (see SPREAD_FACTOR). Last,
+           rounding spread measured in the run (see SPREAD_FACTOR); its
+           ``prefill_scanned`` (64 SSD launches) and 4 scanned decode
+           steps bit for bit the unscanned ones, as for llama. Last,
            phi-3-vision-4.2b at full width (32 layers, D 96, Hq = Hkv =
            32, seeded random float32 weights, its vision frontend a stub):
            ``prefill`` of 2 x 512 seeded embeddings through
@@ -273,6 +293,11 @@ SERVE_CHUNK = 64
 SERVE_BLOCK = 16               # the paged service's block length
 SERVE_PERIOD_S = 0.05          # WallClock: seconds per arrival iteration
 BF16_PROMPT = 2048             # the bfloat16 prefill: 2 prompts of 2048
+INT8_STEPS = 16                # llama's greedy decode steps over int8
+INT8_TIMED = 8                 # then timed steps of each cache, in turns
+# greedy decode steps after the scanned prefill, per kernel of the model
+SCAN_STEPS = {"flash_attention": 16, "ssd_scan": 4}
+SCAN_REL = 1e-6                # scanned vs unscanned where cuBLAS parts
 LOGIT_REL = 1e-4               # teacher-forced logits: of the largest |logit|
 # A 64-layer random-weight Mamba-2 stack carries float32 rounding forward
 # and grows it layer by layer, so two valid float32 evaluations of its
@@ -1789,6 +1814,312 @@ def _prefill_check(params, cfg, arch: str, kernel: str, device,
     return rec, {label: runs[label][:2] for label in ("kernel", "eager")}
 
 
+@contextlib.contextmanager
+def _recorded_quantizer():
+    """The inputs of every call of the port's int8 quantizer
+    (``repro_torch.models.attention._quantize_kv``) while the block runs,
+    copied to the host in order."""
+    from repro_torch.models import attention
+
+    log, quantize = [], attention._quantize_kv
+
+    def recorded(x):
+        log.append(x.detach().to("cpu", copy=True))
+        return quantize(x)
+
+    attention._quantize_kv = recorded
+    try:
+        yield log
+    finally:
+        attention._quantize_kv = quantize
+
+
+def _greedy_steps(params, cfg, logits, cache, impl: str, device, n: int,
+                  feed=None) -> tuple:
+    """``n`` decode steps from (logits, cache): each takes the argmax of
+    the last logits, or ``feed[step]`` where given. Returns (every step's
+    logits with the first, the tokens fed, cache)."""
+    import torch
+
+    from repro_torch.models import decode_step
+
+    out, toks = [logits], []
+    for step in range(n):
+        tok = torch.argmax(out[-1], -1) if feed is None else feed[step]
+        logits, cache = decode_step(params, cfg, tok, cache, impl=impl,
+                                    device=device)
+        out.append(logits)
+        toks.append(tok)
+    return out, toks, cache
+
+
+def _step_walls_in_turns(params, cfg, runs: dict, device, n: int) -> dict:
+    """``n`` greedy decode steps of each of ``runs`` (label -> [impl, last
+    logits, cache], warm: each has stepped before), one step of each in
+    turn, the order rotating every step. Returns label -> the median ms of
+    its steps."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models import decode_step
+
+    labels, walls = list(runs), {label: [] for label in runs}
+    for step in range(n):
+        for label in labels[step % len(labels):] + \
+                labels[:step % len(labels)]:
+            impl, logits, cache = runs[label]
+            tok = torch.argmax(logits, -1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode_step(params, cfg, tok, cache, impl=impl,
+                                        device=device)
+            torch.cuda.synchronize()
+            walls[label].append(1e3 * (time.perf_counter() - t0))
+            runs[label] = [impl, logits, cache]
+    return {label: statistics.median(w) for label, w in walls.items()}
+
+
+def _int8_cache_record(params, cfg, arch: str, device) -> dict:
+    """llama's int8 KV cache at full width: a 2 x 512 ``prefill`` through
+    the flash kernel into an int8 cache (``dtype=torch.int8``; the
+    environment variable is never set here), then INT8_STEPS greedy
+    ``decode_step``s under ``impl="kernel"``, which over an int8 cache
+    attend eagerly on the dequantized cache as the reference does: no
+    decode launch and no decode dispatch. Every layer's int8 rows and
+    scales equal, bit for bit, the quantizer run on the host on the float
+    K/V the prefill gave it; the scales are positive, the logits finite,
+    the cache (D + 4) / 4D of a float32 cache's bytes. Printed: the logit
+    gap to the same tokens over a float32 cache and the greedy tokens that
+    agree; then, with every cache warm, INT8_TIMED more steps of the int8
+    cache and of the float32 cache under each impl, in turns, and the
+    median wall of each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, init_cache, prefill
+
+    d, n_layers = cfg.head_dim, cfg.n_layers
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 512)), device=device)
+    cache = init_cache(cfg, 2, SERVE_MAX_LEN, torch.int8, device)
+    rows = [t for layer in cache for k, t in layer.items() if k != "len"]
+    n_bytes = sum(t.numel() * t.element_size() for t in rows)
+    f32_bytes = n_layers * 2 * 2 * SERVE_MAX_LEN * cfg.n_kv_heads * d * 4
+    check(n_bytes * 4 * d == f32_bytes * (d + 4),
+          f"{arch} int8 cache: {n_bytes} bytes against {f32_bytes}")
+    with _recorded_quantizer() as seen:
+        ops.clear_dispatch_stats()                 # counts to 0 just before
+        ops.reset_launch_counts()
+        logits, cache = prefill(params, cfg, toks, cache, impl="kernel",
+                                device=device)
+        torch.cuda.synchronize()
+        pre_launches, pre_disp = ops.launch_counts(), ops.dispatch_stats()
+    check(pre_launches["flash_attention"] == sum(pre_launches.values())
+          == n_layers and pre_disp == {"flash_attention:cuda": n_layers},
+          f"{arch} int8 prefill: launches {pre_launches}, {pre_disp}")
+    check(len(seen) == 2 * n_layers, f"{len(seen)} quantizer calls")
+    for i, layer in enumerate(cache):
+        for j, key in enumerate(("k", "v")):
+            q, sc = attention._quantize_kv(seen[2 * i + j])
+            check(torch.equal(layer[key][:, :512].cpu(), q)
+                  and torch.equal(layer[key + "_scale"][:, :512].cpu(), sc),
+                  f"{arch} int8 prefill layer {i} {key}: not the host "
+                  "quantizer's bits")
+    del seen
+    ops.clear_dispatch_stats()                     # counts to 0 just before
+    ops.reset_launch_counts()
+    got, fed, cache = _greedy_steps(params, cfg, logits, cache, "kernel",
+                                    device, INT8_STEPS)
+    launches, disp = ops.launch_counts(), ops.dispatch_stats()
+    check(launches["decode_attention"] == 0
+          and not any(k.startswith("decode_attention") for k in disp),
+          f"{arch} int8 decode: launches {launches}, dispatches {disp}")
+    live = 512 + INT8_STEPS
+    check(all(bool((layer[k][:, :live] > 0).all()) for layer in cache
+              for k in ("k_scale", "v_scale")), f"{arch} int8: a zero scale")
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          f"{arch} int8: logits not finite")
+    runs = {"int8_cache": ["kernel", got[-1], cache]}
+    ref = {}
+    for impl in ("kernel", "eager"):
+        c32 = init_cache(cfg, 2, SERVE_MAX_LEN, torch.float32, device)
+        l32, c32 = prefill(params, cfg, toks, c32, impl=impl, device=device)
+        ref[impl], _, c32 = _greedy_steps(params, cfg, l32, c32, impl,
+                                          device, INT8_STEPS, feed=fed)
+        runs[f"float32_cache_{impl}"] = [impl, ref[impl][-1], c32]
+    del cache, c32
+    ms = _step_walls_in_turns(params, cfg, runs, device, INT8_TIMED)
+    del runs
+    want = ref["kernel"]
+    gap = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got, want))
+    same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+               for a, b in zip(got, want))
+    rec = {"phase": "serve", "run": "int8_cache", "arch": arch, "batch": 2,
+           "prompt": 512, "max_len": SERVE_MAX_LEN, "steps": INT8_STEPS,
+           "cache_bytes": n_bytes, "float32_cache_bytes": f32_bytes,
+           "bytes_ratio": n_bytes / f32_bytes,
+           "prefill_launches": pre_launches, "prefill_dispatches": pre_disp,
+           "decode_launches": launches, "decode_dispatches": disp,
+           "decode_route": "eager attention over the dequantized cache: "
+                           "the reference skips the decode kernel for an "
+                           "int8 cache (src/repro/models/attention.py:285, "
+                           ":314)",
+           "quantizer_vs_host": "bitwise, every layer's k and v",
+           "max_rel_logit_gap_to_float32_cache": gap,
+           "greedy_tokens_equal": f"{same} of {2 * (INT8_STEPS + 1)}",
+           "ms_per_decode_step": ms,
+           "ms_per_decode_step_is": f"the median of {INT8_TIMED} warm "
+                                    "steps of each cache, in turns",
+           "launches": {"flash_attention": pre_launches["flash_attention"]}}
+    emit(rec)
+    return rec
+
+
+def _parting(params, sp, cache, slots, cfg) -> dict | None:
+    """Where the unscanned and the scanned paths first part: the first
+    layer whose cache differs, the tensor, and the 256-byte alignment of
+    each of that layer's weights in both layouts (cuBLAS may pick another
+    GEMM kernel at another alignment); None where the caches agree."""
+    from repro_torch.models import unstack_cache
+
+    p = sp.period
+    for i, (a, b) in enumerate(zip(cache, unstack_cache(slots, cfg))):
+        for key in sorted(a):
+            if not bool((a[key] == b[key]).all()):
+                blk = params.blocks[i]
+                return {"layer": i, "tensor": key, "align_256": {
+                    name: [w.data_ptr() % 256,
+                           sp.slots[i % p][name][i // p].data_ptr() % 256]
+                    for name, w in blk.named_parameters()}}
+    return None
+
+
+def _scanned_record(params, cfg, arch: str, kernel: str, device) -> dict:
+    """Scan over layers at full width: ``stack_params`` copies the blocks'
+    weights once into the stacked layout; ``prefill_scanned`` of the 2 x
+    512 prompts under ``impl="kernel"`` launches ``kernel`` once per layer
+    and equals ``prefill`` in logits and every cache tensor; then
+    SCAN_STEPS greedy ``decode_step_scanned`` steps equal ``decode_step``'s
+    logits at every step (decode launches once per attention layer a
+    step) and its caches at the end. The contract is bit for bit; where
+    the two part, the record names the layer, the tensor and the weights'
+    alignments, and the gate is SCAN_REL of the largest |logit|. Both
+    paths run in turns (prefill: unscanned, scanned, scanned, unscanned;
+    decode: the order alternates each step); their walls are printed. The
+    stacked copy is freed at the end."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import (
+        decode_step,
+        decode_step_scanned,
+        init_cache,
+        prefill,
+        prefill_scanned,
+        stack_cache,
+        stack_params,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = stack_params(params, cfg)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    stacked_bytes = sum(t.numel() * t.element_size() for slot in sp.slots
+                        for t in slot.values())
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 512)), device=device)
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    counted = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+
+    def counts_of(fn, args: tuple, scanned: bool, want: dict):
+        """``fn(*args)`` under ``impl="kernel"``, its wall and its launches
+        and dispatches held to ``want``; a scanned call's are counted."""
+        ops.clear_dispatch_stats()                 # counts to 0 just before
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, impl="kernel", device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, disp = ops.launch_counts(), ops.dispatch_stats()
+        check({k: v for k, v in launches.items() if v} == want
+              and disp == {f"{k}:cuda": v for k, v in want.items()},
+              f"{arch} {'scanned' if scanned else 'unscanned'}: launches "
+              f"{launches}, dispatches {disp}; expected {want}")
+        if scanned:
+            for k, v in want.items():
+                counted[k] += v
+        return out, wall
+
+    walls = {"unscanned": [], "scanned": []}
+    first = {}
+    for scanned in (False, True, True, False):
+        label = "scanned" if scanned else "unscanned"
+        cache = init_cache(cfg, 2, SERVE_MAX_LEN, torch.float32, device)
+        out, wall = counts_of(
+            prefill_scanned if scanned else prefill,
+            (sp, cfg, toks, stack_cache(cache, cfg)) if scanned
+            else (params, cfg, toks, cache),
+            scanned, {kernel: cfg.n_layers})
+        walls[label].append(wall)
+        first.setdefault(label, out)
+        del out
+    (u_logits, cache), (s_logits, slots) = first["unscanned"], \
+        first["scanned"]
+    scale = float(u_logits.abs().max())
+    errs, parting = [], None
+
+    def compare(u, s, what):
+        nonlocal parting
+        err = float((u - s).abs().max())
+        if not torch.equal(u, s):
+            parting = parting or _parting(params, sp, cache, slots, cfg)
+            check(parting is not None and err <= SCAN_REL * scale,
+                  f"{arch} {what}: scanned and unscanned logits part by "
+                  f"{err} (largest {scale}); where: {parting}")
+        errs.append(err / scale)
+
+    compare(u_logits, s_logits, "prefill")
+    check(_parting(params, sp, cache, slots, cfg) is None or parting,
+          f"{arch} prefill: the caches part where the logits do not")
+    per_step = {"decode_attention": n_attn} if n_attn else {}
+    steps = SCAN_STEPS[kernel]
+    ms = {"unscanned": 0.0, "scanned": 0.0}
+    for step in range(steps):
+        tok = torch.argmax(u_logits, -1)
+        order = (False, True) if step % 2 == 0 else (True, False)
+        for scanned in order:
+            if scanned:
+                (s_logits, slots), wall = counts_of(
+                    decode_step_scanned, (sp, cfg, tok, slots), True,
+                    per_step)
+            else:
+                (u_logits, cache), wall = counts_of(
+                    decode_step, (params, cfg, tok, cache), False, per_step)
+            ms["scanned" if scanned else "unscanned"] += 1e3 * wall / steps
+        compare(u_logits, s_logits, f"decode step {step}")
+    end = _parting(params, sp, cache, slots, cfg)
+    check(end is None or parting is not None,
+          f"{arch} decode: the caches part where the logits do not: {end}")
+    rec = {"phase": "serve", "run": "scanned", "arch": arch,
+           "kernel": kernel, "period": sp.period, "n_steps": sp.n_steps,
+           "stacked_bytes": stacked_bytes, "stack_s": stack_s, "batch": 2,
+           "prompt": 512, "decode_steps": steps,
+           "bitwise": parting is None, "parting": parting,
+           "max_rel_logit_err": max(errs),
+           "prefill_wall_s": walls, "ms_per_decode_step": ms,
+           "launches": counted}
+    emit(rec)
+    del sp, slots, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
     """One model at full width with seeded float32 weights: the engine
     under the three schedulers, one profiled orca run, the teacher-forced
@@ -1828,10 +2159,14 @@ def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
     profile = _engine_profile(params, cfg, arch, device)
     pre, _ = _prefill_check(params, cfg, arch, kernel, device)
     replay = _replay(params, cfg, arch, streams, device, pre["tol"])
+    int8 = (_int8_cache_record(params, cfg, arch, device)
+            if kernel == "flash_attention" else None)
+    scanned = _scanned_record(params, cfg, arch, kernel, device)
     del params
     torch.cuda.empty_cache()
     return {"engine": runs, "service": service, "profile": profile,
-            "replay": replay, "prefill": pre, "fleet": fleet}
+            "replay": replay, "prefill": pre, "fleet": fleet,
+            "int8_cache": int8, "scanned": scanned}
 
 
 def _service_run(params, cfg, arch: str, sched_name: str, device,
@@ -2658,9 +2993,11 @@ def phase_serve(device) -> dict:
     ``inputs_embeds``, then of deepseek-v2-236b (MLA and MoE) at
     DEEPSEEK_LAYERS layers. The launch counts of the result line sum every
     run of the path: decode over llama's engine runs, the measured fleet's
-    serves, phi-3's decode steps and kernel engine run, and deepseek-v2's
-    engine run, replay and service; flash over llama's and phi-3's float32
-    prefills."""
+    serves, llama's scanned decode steps, phi-3's decode steps and kernel
+    engine run, and deepseek-v2's engine run, replay and service; flash
+    over llama's and phi-3's float32 prefills, llama's int8-cache prefill
+    and its scanned prefills; the SSD scan over mamba2's prefill and its
+    scanned prefills."""
     llama = _serve_arch(SERVE_ARCH, SERVE_LAYERS, "flash_attention", device)
     bf16 = _serve_bf16(device)
     mamba = _serve_arch(MAMBA_ARCH, MAMBA_LAYERS, "ssd_scan", device)
@@ -2678,13 +3015,17 @@ def phase_serve(device) -> dict:
                     + phi["decode"]["launches"]["decode_attention"]
                     + phi["engine"]["launches"]["decode_attention"]
                     + sum(deepseek[k]["launches"]["decode_attention"]
-                          for k in ("engine", "replay", "service")),
+                          for k in ("engine", "replay", "service"))
+                    + llama["scanned"]["launches"]["decode_attention"],
                 "flash_attention":
                     llama["prefill"]["launches"]["flash_attention"]
-                    + phi["prefill"]["launches"]["flash_attention"],
+                    + phi["prefill"]["launches"]["flash_attention"]
+                    + llama["int8_cache"]["launches"]["flash_attention"]
+                    + llama["scanned"]["launches"]["flash_attention"],
                 "flash_attention_bf16":
                     bf16["prefill"]["launches"]["flash_attention_bf16"],
-                "ssd_scan": mamba["prefill"]["launches"]["ssd_scan"]}}
+                "ssd_scan": mamba["prefill"]["launches"]["ssd_scan"]
+                + mamba["scanned"]["launches"]["ssd_scan"]}}
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:

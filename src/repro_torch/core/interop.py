@@ -109,15 +109,19 @@ def params_from_jax(tree, cfg, device, dtype=torch.float32):
     return model
 
 
-CACHE_LEAVES = ({"k", "v", "len"}, {"kv", "len"}, {"state", "len"})
+CACHE_LEAVES = ({"k", "v", "len"}, {"kv", "len"}, {"state", "len"},
+                {"k", "v", "k_scale", "v_scale", "len"},
+                {"kv", "kv_scale", "len"})
 
 
 def cache_from_jax(caches, device):
     """A list of per-layer cache dicts with numpy leaves (``k``, ``v``,
     ``len`` of an attention layer, or ``kv``, ``len`` of an MLA layer,
-    float32 or bfloat16; ``state``, ``len`` of a Mamba layer) as the port's
-    caches on ``device`` (``None`` = CUDA), in the leaves' types. Any other
-    set of leaves (the int8 cache's scales) is refused."""
+    float32 or bfloat16; the same of an int8 cache with its float32
+    ``k_scale``, ``v_scale`` or ``kv_scale``; ``state``, ``len`` of a Mamba
+    layer) as the port's caches on ``device`` (``None`` = CUDA), in the
+    leaves' types. Any other set of leaves, and scales beside rows that
+    are not int8, are refused."""
     from .timing import resolve_device
 
     dev = resolve_device(device)
@@ -125,6 +129,14 @@ def cache_from_jax(caches, device):
         if set(layer) not in CACHE_LEAVES:
             raise ValueError(f"cache layer {i} has leaves {sorted(layer)}, "
                              f"not one of {[sorted(c) for c in CACHE_LEAVES]}")
+        if "state" in layer:
+            continue
+        rows = np.asarray(layer["kv" if "kv" in layer else "k"])
+        scaled = any(key.endswith("_scale") for key in layer)
+        if scaled != (rows.dtype == np.int8):
+            raise ValueError(f"cache layer {i} has leaves {sorted(layer)} "
+                             f"over {rows.dtype} rows: an int8 cache, and "
+                             f"only an int8 cache, has scales")
     return [{k: _tensor(v, dev) for k, v in layer.items()}
             for layer in caches]
 

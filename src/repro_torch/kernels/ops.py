@@ -96,11 +96,18 @@ def mapping_eval_fused(t_proc, sched_idx, chip, ppos, n_chips: int,
 
 def decode_attention(q, k_cache, v_cache, lengths, scale=None):
     """One-token GQA decode: q [B, Hq, D], caches [B, S, Hkv, D], lengths
-    [B] int32 -> [B, Hq, D] in q's dtype."""
+    [B] int32 -> [B, Hq, D] in q's dtype. q and the caches are float32 or
+    bfloat16 on both routes (an int8 cache is refused, as the kernel
+    refuses it: the model dequantizes one and attends eagerly)."""
     path = route(q)
     if path == "cuda":
         out = _da.decode_attention_cuda(q, k_cache, v_cache, lengths, scale)
     else:
+        types = (q.dtype, k_cache.dtype, v_cache.dtype)
+        if any(t not in _da.DTYPES for t in types):
+            raise TypeError(f"decode_attention takes float32 or bfloat16 q "
+                            f"and caches; got q {q.dtype}, caches "
+                            f"{k_cache.dtype} / {v_cache.dtype}")
         out = _da.decode_attention_plain(q, k_cache, v_cache, lengths, scale)
     record_dispatch(f"decode_attention:{path}")
     return out

@@ -39,8 +39,21 @@ bit wherever the cache holds finite values. Caches are allocated with
 zeros (never ``torch.empty``): stale rows beyond ``len`` are read by the
 eager paths and multiplied by a zero weight, and ``0 * NaN`` is NaN.
 
-The int8 cache comes in a later slice of the port and raises
-``NotImplementedError``.
+The int8 cache (``dtype=torch.int8``, or ``REPRO_CACHE_QUANT=1``, see
+:mod:`repro_torch.tuning`) adds float32 scales, one per (token, head):
+``k_scale`` / ``v_scale`` [B, S, Hkv], or MLA's ``kv_scale`` [B, S, 1].
+Each row is stored as ``round(x / s)`` clipped to +-127, with ``s`` the
+row's largest |x| (at least 1e-6) over 127 (:func:`_quantize_kv`, the
+reference's quantizer). ``attention_prefill`` quantizes the prompt's K/V
+(or latent) into the cache and attends on the unquantized q/k/v, through
+the flash kernel under ``impl="kernel"``. ``attention_decode`` quantizes
+the new row in place, dequantizes the whole cache to float32 and attends
+eagerly under both impls: the reference routes an int8 cache around the
+decode kernel, and so does this module (``ops.decode_attention`` itself
+refuses an int8 cache). ``attention_extend`` refuses an int8 cache: the
+reference's ``extend`` drops the scales, and its next ``decode_step``
+raises ``KeyError`` (ROADMAP R3 c), so the serving loops, which prefill
+through ``extend``, refuse it too (:func:`refuse_int8_serving`).
 """
 from __future__ import annotations
 
@@ -48,12 +61,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tuning
 from ..kernels import ops
 from .layers import Dense, apply_rope, dense
 
 IMPLS = ("kernel", "eager")
 NEG_INF = -1e30
-_LATER = "a later slice of the port"
+INT8_EXTEND = ("the int8 KV cache does not survive extend: the reference's "
+               "extend drops its scales and its next decode_step raises "
+               "KeyError (ROADMAP R3 c)")
 
 
 def check_impl(impl: str) -> str:
@@ -83,9 +99,23 @@ def check_full_sequence_impl(cfg, impl: str) -> str:
     return impl
 
 
-def _check_cache(cache) -> None:
-    if cache["kv" if "kv" in cache else "k"].dtype == torch.int8:
-        raise NotImplementedError(f"the int8 KV cache comes in {_LATER}")
+def _is_int8(cache) -> bool:
+    return cache["kv" if "kv" in cache else "k"].dtype == torch.int8
+
+
+def cache_dtype(dtype):
+    """The dtype of an attention cache asked for as ``dtype``: int8 under
+    ``REPRO_CACHE_QUANT=1`` whatever ``dtype`` is, as in the reference."""
+    return torch.int8 if tuning.cache_quant() else dtype
+
+
+def refuse_int8_serving(what: str, dtype=None) -> None:
+    """Raise ``NotImplementedError`` where ``what`` (a serving loop that
+    prefills through ``extend``) would hold an int8 cache: ``dtype`` int8,
+    or ``REPRO_CACHE_QUANT=1``."""
+    if cache_dtype(dtype) == torch.int8:
+        raise NotImplementedError(f"{what} prefills through extend, and "
+                                  f"{INT8_EXTEND}")
 
 
 # --------------------------------------------------------------------------
@@ -235,8 +265,8 @@ def attention_train(p, x, cfg, positions, rope, causal=True, impl="eager"):
 
 
 def attention_prefill(p, x, cfg, positions, rope, cache, impl="kernel"):
-    """Prefill: full-sequence attention + fill the first L cache rows."""
-    _check_cache(cache)
+    """Prefill: full-sequence attention + fill the first L cache rows (an
+    int8 cache with the rows quantized and their scales)."""
     b, l, _ = x.shape
     rows = cache["kv" if cfg.attn_kind == "mla" else "k"].shape[1]
     if l > rows:
@@ -246,30 +276,55 @@ def attention_prefill(p, x, cfg, positions, rope, cache, impl="kernel"):
     y = _sdpa(q, k, v, causal=True, offset=0, impl=impl)
     y = y.transpose(1, 2).reshape(b, l, -1)
     ln = torch.full((b,), l, dtype=torch.int32, device=x.device)
-    if cfg.attn_kind == "mla":
-        cache["kv"][:, :l] = latent[:, :, None, :].to(cache["kv"].dtype)
-        return dense(p.wo, y), {"kv": cache["kv"], "len": ln}
-    cache["k"][:, :l] = k.transpose(1, 2).to(cache["k"].dtype)
-    cache["v"][:, :l] = v.transpose(1, 2).to(cache["v"].dtype)
-    return dense(p.wo, y), {"k": cache["k"], "v": cache["v"], "len": ln}
+    rows = {"kv": latent[:, :, None, :]} if cfg.attn_kind == "mla" else \
+        {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
+    int8 = _is_int8(cache)
+    for key, new in rows.items():
+        if int8:
+            new, scale = _quantize_kv(new)
+            cache[key + "_scale"][:, :l] = scale
+        cache[key][:, :l] = new.to(cache[key].dtype)
+    return dense(p.wo, y), _with_len(cache, ln)
 
 
 def _scatter_cache(cache, new, pos):
-    """cache: [B, S, H, D]; new: [B, H, D]; pos: [B]. Writes row ``pos[b]``
-    of each sequence in place; a position at or past S writes nothing (the
-    reference's one-hot blend has no such row either)."""
+    """cache: [B, S, H, D] (or a scale cache [B, S, H]); new: [B, H, D]
+    (or [B, H]); pos: [B]. Writes row ``pos[b]`` of each sequence in
+    place; a position at or past S writes nothing (the reference's one-hot
+    blend has no such row either)."""
     s = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     at = pos.clamp(0, s - 1)
     keep = cache[rows, at]
-    cache[rows, at] = torch.where((pos < s)[:, None, None],
-                                  new.to(cache.dtype), keep)
+    inside = (pos < s).reshape((-1,) + (1,) * (keep.dim() - 1))
+    cache[rows, at] = torch.where(inside, new.to(cache.dtype), keep)
     return cache
 
 
+def _decode_write(cache, key, new, pos):
+    """Write one decode row ``new`` [B, H, D] of cache ``key`` at ``pos``
+    in place, quantized with its scale row into an int8 cache, and return
+    the cache's rows to attend over: the cache itself, or the whole int8
+    cache dequantized to float32."""
+    if cache[key].dtype != torch.int8:
+        return _scatter_cache(cache[key], new, pos)
+    qv, sc = _quantize_kv(new[:, None])
+    _scatter_cache(cache[key], qv[:, 0], pos)
+    _scatter_cache(cache[key + "_scale"], sc[:, 0], pos)
+    return _dequantize_kv(cache, key)
+
+
+def _with_len(cache, lengths):
+    """The cache a step returns: the same row tensors (written in place)
+    and the new lengths."""
+    return {**{key: t for key, t in cache.items() if key != "len"},
+            "len": lengths}
+
+
 def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
-    """One-token decode with KV cache. x: [B, 1, d] -> [B, 1, d]."""
-    _check_cache(cache)
+    """One-token decode with KV cache. x: [B, 1, d] -> [B, 1, d]. Over an
+    int8 cache the attention is eager under both impls, as in the
+    reference."""
     if cfg.attn_kind == "mla":
         return _mla_decode(p, x, cfg, rope, cache, check_impl(impl))
     b = x.shape[0]
@@ -282,16 +337,16 @@ def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
     v = dense(p.wv, x1).reshape(b, hkv, hd)
     q = apply_rope(q, pos[:, None], cos, sin)
     k = apply_rope(k, pos[:, None], cos, sin)
-    kc = _scatter_cache(cache["k"], k, pos)
-    vc = _scatter_cache(cache["v"], v, pos)
+    kc = _decode_write(cache, "k", k, pos)
+    vc = _decode_write(cache, "v", v, pos)
     lengths = pos + 1
-    if check_impl(impl) == "kernel":
+    if check_impl(impl) == "kernel" and not _is_int8(cache):
         o = ops.decode_attention(q, kc, vc, lengths)   # q unrounded
     else:
         o = _xla_decode(q, kc, vc, lengths)
     o = o.to(x.dtype)
     y = dense(p.wo, o.reshape(b, -1))[:, None, :]
-    return y, {"k": kc, "v": vc, "len": lengths}
+    return y, _with_len(cache, lengths)
 
 
 def _mla_decode(p, x, cfg, rope, cache, impl):
@@ -314,9 +369,9 @@ def _mla_decode(p, x, cfg, rope, cache, impl):
     c_new, kr_new = ckv[..., :r], ckv[..., r:]
     kr_new = apply_rope(kr_new[:, None, :], pos[:, None], cos, sin)[:, 0]
     lat_new = torch.cat([c_new, kr_new], -1)[:, None, :]   # [B, 1, r+rd]
-    kv = _scatter_cache(cache["kv"], lat_new, pos)
+    kv = _decode_write(cache, "kv", lat_new, pos)
     lengths = pos + 1
-    if impl == "kernel":
+    if impl == "kernel" and not _is_int8(cache):
         o = ops.decode_attention(q_eff, kv, kv, lengths)   # q unrounded
     else:
         o = _xla_decode(q_eff, kv, kv, lengths)
@@ -324,7 +379,7 @@ def _mla_decode(p, x, cfg, rope, cache, impl):
     y = torch.einsum("bhr,rhd->bhd", o[..., :r],
                      p.w_uv.w.reshape(r, hq, hd))
     return dense(p.wo, y.reshape(b, -1))[:, None, :], \
-        {"kv": kv, "len": lengths}
+        _with_len(cache, lengths)
 
 
 def _promoted(q, cache):
@@ -360,8 +415,10 @@ def attention_extend(p, x, cfg, rope, cache, impl="kernel", length=None):
     ``length`` ([B] int32, optional): true chunk length when x is
     right-padded — only the cache ``len`` advance uses it (pad K/V rows
     land beyond the advanced length, are never read by the causal mask,
-    and are overwritten by the next chunk; rows past S are dropped)."""
-    _check_cache(cache)
+    and are overwritten by the next chunk; rows past S are dropped). An
+    int8 cache is refused before any work (see :data:`INT8_EXTEND`)."""
+    if _is_int8(cache):
+        raise NotImplementedError(INT8_EXTEND)
     check_impl(impl)
     b, l, _ = x.shape
     adv = l if length is None else length
@@ -438,20 +495,48 @@ def _xla_extend(q, k_cache, v_cache, off, l):
     return o.reshape(b, hq, l, d)
 
 
+def _quantize_kv(x):
+    """x: [B, L, H, D] -> (int8 values, float32 scales [B, L, H]): the
+    reference's quantizer, float32 throughout, ``torch.round`` rounding
+    half to even as ``jnp.round`` does. The divisor 127 is a tensor on
+    x's device: CUDA torch divides by a Python number as a product with
+    its rounded reciprocal, which may differ from the quotient in the last
+    bit; by a tensor it divides, on every device alike."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1).clamp(min=1e-6) \
+        / torch.full((), 127.0, device=x.device)
+    q = torch.round(x32 / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(cache, key):
+    c = cache[key]
+    if c.dtype != torch.int8:
+        return c
+    return c.float() * cache[key + "_scale"][..., None]
+
+
 def init_attn_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                     device=None):
     """Zero-filled ``{"k", "v", "len"}`` (MLA: ``{"kv", "len"}``) on
-    ``device`` (resolved by the caller)."""
+    ``device`` (resolved by the caller). Under ``REPRO_CACHE_QUANT=1``
+    the rows are int8 whatever ``dtype`` asks, as in the reference; an
+    int8 cache adds zero-filled float32 ``k_scale`` / ``v_scale``
+    [B, S, Hkv] (MLA: ``kv_scale`` [B, S, 1])."""
     _check_attn_kind(cfg)
-    if dtype == torch.int8:
-        raise NotImplementedError(f"the int8 KV cache comes in {_LATER}")
+    dtype = cache_dtype(dtype)
     if cfg.attn_kind == "mla":
         width = cfg.mla_kv_rank + cfg.mla_rope_dim
-        return {"kv": torch.zeros((batch, max_len, 1, width), dtype=dtype,
-                                  device=device),
-                "len": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device)}
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+        keys, shape = ("kv",), (batch, max_len, 1, width)
+    else:
+        keys = ("k", "v")
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    out = {key: torch.zeros(shape, dtype=dtype, device=device)
+           for key in keys}
+    if dtype == torch.int8:
+        out.update({key + "_scale": torch.zeros(shape[:3],
+                                                dtype=torch.float32,
+                                                device=device)
+                    for key in keys})
+    out["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return out

@@ -23,17 +23,17 @@ it, the extra ones have gate 0 and add exactly 0.
 
 The expert products are large matrix products, outside any kernel of the
 JAX package, so they are plain batched torch products here. The capacity
-factor is the JAX package's default of ``REPRO_MOE_CAP`` (1.25); the port
-reads no environment knob for it.
+factor ``cf``, where a caller passes none, is
+:func:`repro_torch.tuning.moe_capacity_factor` (``REPRO_MOE_CAP``, 1.25
+by default), read at each call as the reference reads it.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .. import tuning
 from .layers import Dense, _normal, _param, dense, swiglu
-
-CAPACITY_FACTOR = 1.25
 
 
 class MoE(nn.Module):
@@ -64,15 +64,19 @@ class MoE(nn.Module):
 
 
 def expert_capacity(t: int, top_k: int, n_routed: int,
-                    capacity_factor: float = CAPACITY_FACTOR) -> int:
-    """Tokens each expert takes out of ``t``."""
+                    capacity_factor: float | None = None) -> int:
+    """Tokens each expert takes out of ``t`` (``capacity_factor=None``:
+    ``tuning.moe_capacity_factor()``)."""
+    if capacity_factor is None:
+        capacity_factor = tuning.moe_capacity_factor()
     return max(1, min(t, int(t * top_k / n_routed * capacity_factor) + 1))
 
 
-def route(p: MoE, xt, cfg, capacity_factor: float = CAPACITY_FACTOR):
+def route(p: MoE, xt, cfg, capacity_factor: float | None = None):
     """The routing of tokens xt [T, d]: (the router's float32 softmax
     [T, E]; the same with each token's top-k renormalised and the rest 0;
-    per expert its chosen gates [E, C] and token indices [E, C])."""
+    per expert its chosen gates [E, C] and token indices [E, C]).
+    ``capacity_factor=None`` reads ``tuning.moe_capacity_factor()``."""
     e, k = cfg.moe.n_routed, cfg.moe.top_k
     gates = torch.softmax(dense(p.router, xt).float(), dim=-1)
     thresh = torch.topk(gates, k, dim=-1).values[:, -1:]
@@ -86,8 +90,9 @@ def route(p: MoE, xt, cfg, capacity_factor: float = CAPACITY_FACTOR):
     return gates, masked, g_e[:, :cap], idx_e[:, :cap]
 
 
-def apply_moe(p: MoE, x, cfg, capacity_factor: float = CAPACITY_FACTOR):
-    """x: [B, L, d] -> [B, L, d]."""
+def apply_moe(p: MoE, x, cfg, capacity_factor: float | None = None):
+    """x: [B, L, d] -> [B, L, d]. ``capacity_factor=None`` reads
+    ``tuning.moe_capacity_factor()``."""
     b, l, d = x.shape
     e = cfg.moe.n_routed
     xt = x.reshape(b * l, d)

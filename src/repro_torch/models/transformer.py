@@ -15,9 +15,16 @@ Paths:
 * ``extend``       — continue caches by a (padded) chunk;
 * ``decode_step``  — one token with caches (the serving inner loop).
 
-``forward`` and ``prefill`` take ``inputs_embeds`` [B, L, d_model] in place
-of tokens (a vision or audio frontend's output, as phi-3-vision's stub
-passes it); ``extend``, ``decode_step`` and the serving loops take tokens.
+Scan over layers (parameters and caches in the stacked layout of
+:mod:`.stacked`): ``forward_scanned``, ``prefill_scanned`` and
+``decode_step_scanned`` call ``forward``, ``prefill`` and ``decode_step``
+on the stacked tensors read in layer order (views, no copy), so they equal
+them bit for bit by construction.
+
+``forward``, ``prefill`` and their scanned twins take ``inputs_embeds``
+[B, L, d_model] in place of tokens (a vision or audio frontend's output,
+as phi-3-vision's stub passes it); ``extend``, ``decode_step`` and the
+serving loops take tokens.
 
 Every path takes ``device`` (``None`` = CUDA, raising where there is none,
 as the search's entry points do) and refuses tensors that lie elsewhere,
@@ -29,8 +36,13 @@ none as ``cfg.ffn_kind(i)`` says. MLA's ``forward`` and ``prefill`` run
 only under ``impl="eager"`` (see :mod:`.attention`); its serving paths
 (``extend``, ``decode_step``) take either impl.
 
-Encoder-decoder models and the scan-over-layers entry points come in
-later slices and raise ``NotImplementedError``.
+``init_cache`` makes int8 attention caches (with their scales) for
+``dtype=torch.int8`` or under ``REPRO_CACHE_QUANT=1``, and float32 Mamba
+states either way; ``prefill`` and ``decode_step`` take them, ``extend``
+refuses them (see :mod:`.attention`).
+
+Encoder-decoder models come in a later slice and raise
+``NotImplementedError`` (``encode``, ``encode_scanned``).
 """
 from __future__ import annotations
 
@@ -72,6 +84,7 @@ from .mamba2 import (
     mamba_train,
 )
 from .moe import MoE, apply_moe
+from .stacked import StackedParams, unstack_cache
 
 _LATER = "a later slice of the port"
 
@@ -239,7 +252,7 @@ def _check_device(device, params, *tensors) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    for name, t in (("params", next(params.parameters())),) + tensors:
+    for name, t in (("params", params.embed.e),) + tensors:
         if t.device != dev:
             raise ValueError(f"{name} lie on {t.device}, not on {dev}; pass "
                              f"device= to say where to run")
@@ -329,7 +342,8 @@ def forward(params, cfg: ModelConfig, tokens=None, impl="eager", device=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """One zero-filled cache per layer on ``device`` (``None`` = CUDA): an
-    attention cache of ``dtype`` or a float32 Mamba state, as
+    attention cache of ``dtype`` (int8 with its scales under
+    ``REPRO_CACHE_QUANT=1``) or a float32 Mamba state, as
     ``cfg.mixer_kind(i)`` says."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -405,15 +419,15 @@ def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
 
 def _row_keys(layer) -> tuple[str, ...]:
     """The keys of an attention layer's cache rows: ``k`` and ``v``, or
-    MLA's ``kv``."""
-    return ("kv",) if "kv" in layer else ("k", "v")
+    MLA's ``kv``, and an int8 cache's scale rows."""
+    return tuple(key for key in layer if key != "len")
 
 
 def _save_slots(layer):
     """What a decode step may overwrite in one layer's cache: each slot's
-    ``len`` and its cache rows (K/V, or MLA's latent) at the write position
-    (clamped into the cache). A Mamba layer's decode returns a new state,
-    so its old state is kept as it is."""
+    ``len`` and its cache rows (K/V, or MLA's latent, and their scales) at
+    the write position (clamped into the cache). A Mamba layer's decode
+    returns a new state, so its old state is kept as it is."""
     if "state" in layer:
         return dict(layer)
     keys = _row_keys(layer)
@@ -435,10 +449,10 @@ def _mask_cache(old, new, active):
         return {"state": torch.where(keep, new["state"], old["state"]),
                 "len": torch.where(active, new["len"], old["len"])}
     rows = torch.arange(active.shape[0], device=active.device)
-    keep = active[:, None, None]
     keys = _row_keys(new)
     for key in keys:
         c = new[key]
+        keep = active.reshape((-1,) + (1,) * (old[key].dim() - 1))
         c[rows, old["at"]] = torch.where(keep, c[rows, old["at"]], old[key])
     return {**{key: new[key] for key in keys},
             "len": torch.where(active, new["len"], old["len"])}
@@ -470,16 +484,76 @@ def decode_step(params, cfg: ModelConfig, token, cache, impl="kernel",
         return _logits(params, cfg, x[:, 0]), new_cache
 
 
+# --------------------------------------------------------------------------
+# scan-over-layers paths (stacked params and caches, see .stacked)
+# --------------------------------------------------------------------------
+
+
+def _layers(params, cfg: ModelConfig):
+    """Stacked params read in layer order (:meth:`.stacked.StackedParams.
+    layers`), after checking that they are stacked params of ``cfg``."""
+    if not isinstance(params, StackedParams):
+        raise TypeError("the scanned entry points take stack_params(params, "
+                        f"cfg), not {type(params).__name__}")
+    if params.period * params.n_steps != cfg.n_layers:
+        raise ValueError(f"stacked params of {params.n_steps} steps of "
+                         f"period {params.period} for {cfg.n_layers} layers")
+    return params.layers()
+
+
+def _write_back(views, new_cache) -> None:
+    """Copy into the stacked slots what a layer returned anew (``len``, a
+    Mamba state); its attention rows were written in place through the
+    views."""
+    for view, layer in zip(views, new_cache):
+        for key, t in layer.items():
+            if t is not view[key]:
+                view[key].copy_(t)
+
+
+def forward_scanned(params, cfg: ModelConfig, tokens=None, impl="eager",
+                    device=None, inputs_embeds=None, remat: bool = True):
+    """``forward`` over stacked params (:func:`.stacked.stack_params`).
+    ``remat`` is accepted as the reference takes it and has no effect: the
+    port's forward is inference-only (no activations are kept for a
+    backward pass)."""
+    return forward(_layers(params, cfg), cfg, tokens, impl, device,
+                   inputs_embeds)
+
+
+def prefill_scanned(params, cfg: ModelConfig, tokens, cache_slots,
+                    impl="kernel", device=None, inputs_embeds=None):
+    """``prefill`` over stacked params and caches (:func:`.stacked.
+    stack_cache`): (last logits [B, vocab], ``cache_slots``, written in
+    place)."""
+    layers = _layers(params, cfg)
+    views = unstack_cache(cache_slots, cfg)
+    logits, new_cache = prefill(layers, cfg, tokens, views, impl, device,
+                                inputs_embeds)
+    _write_back(views, new_cache)
+    return logits, cache_slots
+
+
+def decode_step_scanned(params, cfg: ModelConfig, token, cache_slots,
+                        impl="kernel", device=None):
+    """``decode_step`` over stacked params and caches: (logits [B, vocab],
+    ``cache_slots``, written in place). Every slot is active, as in the
+    reference's scanned decode."""
+    layers = _layers(params, cfg)
+    views = unstack_cache(cache_slots, cfg)
+    logits, new_cache = decode_step(layers, cfg, token, views, impl,
+                                    device=device)
+    _write_back(views, new_cache)
+    return logits, cache_slots
+
+
 def _later(name: str):
     def entry(*args, **kwargs):
-        raise NotImplementedError(f"{name} (scan-over-layers / encoder "
-                                  f"paths) comes in {_LATER}")
+        raise NotImplementedError(f"{name} (encoder-decoder models) comes "
+                                  f"in {_LATER}")
     entry.__name__ = name
     return entry
 
 
 encode = _later("encode")
-forward_scanned = _later("forward_scanned")
 encode_scanned = _later("encode_scanned")
-prefill_scanned = _later("prefill_scanned")
-decode_step_scanned = _later("decode_step_scanned")

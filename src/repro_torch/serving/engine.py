@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.timing import resolve_device
-from ..models.attention import check_impl
+from ..models.attention import check_impl, refuse_int8_serving
 from ..models.transformer import (
     ModelConfig,
     decode_step,
@@ -73,11 +73,14 @@ class RunResult:
 
 class ServingEngine:
     """``params`` (a :class:`~repro_torch.models.Transformer`) must lie on
-    ``device`` (``None`` = CUDA, raising where there is none)."""
+    ``device`` (``None`` = CUDA, raising where there is none). An int8
+    cache (``cache_dtype=torch.int8`` or ``REPRO_CACHE_QUANT=1``) is
+    refused: prompts go through ``extend``, which does not take one."""
 
     def __init__(self, params, cfg: ModelConfig, max_batch: int = 8,
                  max_len: int = 512, impl: str = "kernel",
                  cache_dtype=torch.float32, device=None):
+        refuse_int8_serving("ServingEngine", cache_dtype)
         self.device = resolve_device(device)
         if max_len > cfg.max_seq:
             raise ValueError(f"max_len {max_len} exceeds {cfg.name}'s "

@@ -44,7 +44,7 @@ import torch
 from ..core.streams import RequestStream, RequestTimings, StreamRollout
 from ..core.timing import resolve_device
 from ..core.workload import DECODE, PREFILL, Request
-from ..models.attention import check_impl
+from ..models.attention import check_impl, refuse_int8_serving
 from .clock import IterationClock, WallClock
 from .paged_cache import PagedKVCache, TransferBufferPool
 from .scheduler import (
@@ -145,12 +145,15 @@ class AsyncLLMService:
     call resets the residency bookkeeping. ``params`` (a
     :class:`~repro_torch.models.Transformer`) must lie on ``device``
     (``None`` = CUDA, raising where there is none); ``impl`` is the model
-    stack's (``"kernel"``: decode through the decode-attention kernel).
+    stack's (``"kernel"``: decode through the decode-attention kernel). An
+    int8 cache (``cache_dtype=torch.int8`` or ``REPRO_CACHE_QUANT=1``) is
+    refused: prompts go through ``extend``, which does not take one.
     """
 
     def __init__(self, params, cfg, config: ServiceConfig | None = None,
                  impl: str = "kernel", clock=None, cache_dtype=None,
                  device=None):
+        refuse_int8_serving("AsyncLLMService", cache_dtype)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg

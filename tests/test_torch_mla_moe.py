@@ -164,8 +164,9 @@ def _moe_pair(arch, seed=0):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_apply_moe_matches_jax(arch, n_tok):
     from repro.tuning import moe_capacity_factor
+    from repro_torch import tuning
 
-    assert t_moe.CAPACITY_FACTOR == moe_capacity_factor()
+    assert tuning.moe_capacity_factor() == moe_capacity_factor()
     j_cfg, j_p, cfg, mod = _moe_pair(arch)
     assert (cfg.moe.n_shared > 0) == (arch != "jamba-v0.1-52b")
     x = np.random.default_rng(n_tok).standard_normal(

@@ -293,44 +293,16 @@ def test_params_from_jax_checks_the_tree():
     assert tuple(names["blocks.1.attn.wq.w"].shape) == (128, 4 * 32)
 
 
-@pytest.mark.parametrize("case", ["whisper-tiny", "int8-cache-gqa",
-                                  "int8-cache-mla",
-                                  "scanned-deepseek-moe-16b"])
+@pytest.mark.parametrize("case", ["whisper-tiny"])
 def test_unported_families_raise(case):
     """What the port does not run yet is refused with NotImplementedError,
-    naming the later slice: an encoder-decoder config (whisper-tiny), the
-    int8 cache of a GQA and of the MLA config, and a scan-over-layers
-    entry point on an MoE config."""
-    if case == "whisper-tiny":
-        j_cfg = j_archs()[case].reduced()
-        cfg = t_models.ModelConfig(**dataclasses.asdict(j_cfg))
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_models.init_model(cfg, device=CPU)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_models.init_cache(cfg, 1, 8, device=CPU)
-        return
-    if case.startswith("int8-cache"):
-        arch = "llama3.2-3b" if case.endswith("gqa") else "deepseek-v2-236b"
-        cfg = t_configs.get(arch).reduced()
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_models.init_cache(cfg, 1, 8, dtype=torch.int8, device=CPU)
-        # an int8 cache made elsewhere is refused by the decode path too
-        params = t_models.init_model(cfg, device=CPU)
-        cache = t_models.init_cache(cfg, 1, 8, dtype=torch.float32,
-                                    device=CPU)
-        cache = [{k: (v.to(torch.int8) if v.is_floating_point() else v)
-                  for k, v in layer.items()} for layer in cache]
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_models.decode_step(params, cfg, torch.zeros(1, dtype=torch.long),
-                                 cache, impl="eager", device=CPU)
-        return
-    from repro_torch.models import transformer
-
-    cfg = t_configs.get("deepseek-moe-16b").reduced()
-    params = t_models.init_model(cfg, device=CPU)
+    naming the later slice: an encoder-decoder config (whisper-tiny)."""
+    j_cfg = j_archs()[case].reduced()
+    cfg = t_models.ModelConfig(**dataclasses.asdict(j_cfg))
     with pytest.raises(NotImplementedError, match="later slice"):
-        transformer.forward_scanned(params, cfg,
-                                    torch.zeros((1, 4), dtype=torch.long))
+        t_models.init_model(cfg, device=CPU)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        t_models.init_cache(cfg, 1, 8, device=CPU)
 
 
 def test_unknown_impl_and_later_entry_points_raise():
@@ -340,8 +312,7 @@ def test_unknown_impl_and_later_entry_points_raise():
         t_models.forward(params, cfg, toks, impl="xla", device=CPU)
     from repro_torch.models import transformer
 
-    for name in ("encode", "forward_scanned", "prefill_scanned",
-                 "decode_step_scanned"):
+    for name in ("encode", "encode_scanned"):
         with pytest.raises(NotImplementedError, match="later slice"):
             getattr(transformer, name)(params, cfg, toks)
 

@@ -32,6 +32,7 @@ def test_main_path_imports_no_jax_and_no_reference():
         "import repro_torch.analysis.fuzz, repro_torch.serving.service\n"
         "import repro_torch.models.paged, repro_torch.fleet\n"
         "import repro_torch.configs.phi_3_vision_4_2b\n"
+        "import repro_torch.tuning, repro_torch.models.stacked\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(bad)\n"
