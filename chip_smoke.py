@@ -23,7 +23,10 @@ Phases — any failure raises and the script exits non-zero:
            llama3.2-3b's (decode B 8, Hq 24, Hkv 8, D 128, S 1024, seeded
            lengths; flash B 2, L 512 and 2048 causal, and Lq 100 < Lk
            512), at phi-3-vision-4.2b's (Hq = Hkv = 32, D 96: decode B 8,
-           S 1024; flash B 2, L 512 causal) and, for flash, at every D
+           S 1024; flash B 2, L 512 causal), at whisper-tiny's (Hq = Hkv
+           = 6, D 64, not causal: flash at Lk 1,500 with Lq 1, 7, 64, 65
+           and 1,500, B 2, and Lq 1 at B 8 with Lk 1,500 and 1,501;
+           decode B 2, S 128, also at split edges) and, for flash, at every D
            in {32, 64, 96, 128}, causal and bidirectional, ragged L,
            L < 16 and Hq / Hkv of 1, 3 and 8: 2e-5 in float32 (the
            float32 flash kernel and the first float32 flash kernel both),
@@ -168,8 +171,32 @@ Phases — any failure raises and the script exits non-zero:
            ROUTE_MARGIN; one orca ``AsyncLLMService`` run under
            ``IterationClock``, admissions, batches and RequestTimings
            equal to the plan bit for bit, 2 launches per decode
-           iteration;
-5. times   CUDA-event times of each kernel, its plain version and, for the
+           iteration. Last, whisper-tiny (encoder-decoder) at full width
+           (4 encoder and 4 decoder blocks, seeded random float32
+           weights, its audio frontend a stub): ``encode`` of 2 x 1,500
+           seeded frames (4 flash launches), a 2 x 64 ``prefill`` against
+           them (8: 4 causal self, 4 cross at Lq 64, Lk 1,500) and 16
+           teacher-forced ``decode_step``s (4 decode and 4 flash, the
+           cross-attention at Lq 1, a step), each within 1e-4 of the
+           largest eager value (enc_out, logits); one orca engine run
+           through the kernels and one eagerly against an enc_out of 8
+           rows, their tokens equal;
+5. train   training at llama3.2-3b's full width (3.21 B float32
+           parameters, weights, gradients and AdamW's moments ~51 GB):
+           first one step's gradients at 2 of its 28 layers held to a
+           float64 copy of the same step (1e-4 of each leaf's largest
+           |g|); at all 28 layers the loss's central difference along
+           the gradient within 1e-3 of the gradient's norm;
+           ``impl="kernel"`` under grad raises ``ValueError``; then, from
+           one seeded init each, 4 ``make_train_step`` steps with remat
+           on, on ``TokenStream`` seed 0 (2 x 512 tokens, warm-up 2),
+           eager as the reference trains (no kernel launched, counted):
+           at lr 1e-5 the losses finite, the last below the first and
+           batch 0's loss lower after the steps; at tests/test_training.
+           py's lr 2e-3 (which overshoots at this size) finite and
+           recorded; the step walls and ``torch.cuda.max_memory_
+           allocated``;
+6. times   CUDA-event times of each kernel, its plain version and, for the
            attention kernels, ``torch.nn.functional.scaled_dot_product_
            attention`` on the same inputs, beside the least time the card
            could take for the same bytes (3.35 TB/s) or operations
@@ -185,8 +212,10 @@ Phases — any failure raises and the script exits non-zero:
            device time per call from ``torch.profiler`` -- split and
            combine kernels summed -- and its host time per call over
            back-to-back calls, and the same two for the library call),
-           flash at L in {512, 2048}, Lq 100 < Lk 512 and phi-3's
-           D 96, rep 1, L 512
+           flash at L in {512, 2048}, Lq 100 < Lk 512, phi-3's
+           D 96, rep 1, L 512 and whisper's encoder (B 2, L 1,500,
+           bidirectional) and cross-attention at decode (B 8, Lq 1,
+           Lk 1,500), decode also at whisper's D 64, rep 1, S 128
            (float32 through the FMA kernel, in turns with the first float32
            kernel as well: first, new, new, first; bfloat16 through the
            tensor-core kernel; each kernel's device time per call from
@@ -204,7 +233,7 @@ Phases — any failure raises and the script exits non-zero:
            shared bytes, blocks per SM), in turns with the library call
            where it takes the types, beside the bound of the latent read
            once;
-6. profile one hardware point's mapping search (the search path's GA)
+7. profile one hardware point's mapping search (the search path's GA)
            under ``torch.profiler``: wall, device busy time and share, and
            the kernels that take the device time.
 
@@ -226,7 +255,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "parity", "main", "serve", "times", "profile")
+PHASES = ("build", "parity", "main", "serve", "train", "times", "profile")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16 tensor cores, dense
@@ -287,6 +316,29 @@ PHI_STEPS = 16                 # teacher-forced decode steps after prefill
 DEEPSEEK_ARCH, DEEPSEEK_FULL_LAYERS, DEEPSEEK_LAYERS = \
     "deepseek-v2-236b", 60, 2
 ROUTE_MARGIN = 1e-5            # an MoE choice this close may flip
+# whisper-tiny at full width (4 + 4 layers, 37.8 M parameters): 2 x 1,500
+# seeded frames encoded, a 2 x 64-token prefill against them, then
+# WHISPER_STEPS teacher-forced decode steps, over a cache of WHISPER_LEN
+WHISPER_ARCH, WHISPER_PROMPT, WHISPER_STEPS, WHISPER_LEN = \
+    "whisper-tiny", 64, 16, 128
+# the train phase: llama3.2-3b at full width, TRAIN_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens from one seeded init under each of
+# TRAIN_OPTS, with tests/test_training.py::test_loss_decreases's warm-up.
+# AdamW's first steps move every weight by about the learning rate, and at
+# 3.21 B random parameters that overshoots from lr 1e-4 up (a sweep of lr
+# 1e-5 to 2e-3 on the card: PERF.md, PR 27); so the gated run (losses
+# finite, the last below the first, and batch 0's loss lower after the
+# steps) is at lr 1e-5, and the test's own lr 2e-3 runs too, its losses
+# held finite and recorded. The gradients: at full depth against the
+# loss's central difference along them (within DD_REL of their norm, at a
+# step of DD_EPS in parameter norm), and at TRAIN_CHECK_LAYERS layers
+# against a float64 copy of the same step (within GRAD_REL)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "llama3.2-3b", 4, 2, 512
+TRAIN_OPTS = {"gated": dict(lr=1e-5, warmup_steps=2, total_steps=12),
+              "test_loss_decreases": dict(lr=2e-3, warmup_steps=2,
+                                          total_steps=12)}
+TRAIN_CHECK_LAYERS, GRAD_REL = 2, 1e-4
+DD_EPS, DD_REL = 1e-3, 1e-3
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
 SERVE_CHUNK = 64
@@ -315,6 +367,13 @@ FLASH_BF16_MAIN = (2, 24, 8, 2048, 2048, 128, True)  # the bf16 prefill's
 # prefill, decode at 8 lanes of the serve phase's max_len
 FLASH_PHI = (2, 32, 32, 512, 512, 96, True)
 DECODE_PHI = (8, 32, 32, 1024, 96)
+# whisper-tiny's: D 64, Hq = Hkv = 6 (rep 1); flash at its encoder's
+# bidirectional self-attention over 2 x 1,500 frames and at its
+# cross-attention (not causal, Lk 1,500) from one decode token at 8 lanes;
+# decode over the serve phase's 2 x 128-row cache
+FLASH_WHISPER_ENC = (2, 6, 6, 1500, 1500, 64, False)
+FLASH_WHISPER_CROSS = (8, 6, 6, 1, 1500, 64, False)
+DECODE_WHISPER = (2, 6, 6, 128, 64)
 # a sixth entry "edges" sets the lengths to 0, 1, a split boundary - 1, at
 # and + 1, S and past S (in turn, as many as B takes) under the kernel's
 # split plan; shapes below: the engine's width at S 1024, S 8192 with many
@@ -324,7 +383,8 @@ DECODE_PARITY = [DECODE_MAIN, (2, 8, 2, 257, 64), (1, 4, 4, 96, 32),
                  (3, 4, 1, 130, 64), (8, 24, 8, 1024, 128, "edges"),
                  (7, 8, 2, 8192, 64, "edges"), (5, 6, 2, 20, 32, "edges"),
                  (6, 4, 1, 300, 64, "edges"), (8, 24, 8, 8192, 128),
-                 (66, 32, 32, 8192, 32), DECODE_PHI]
+                 (66, 32, 32, 8192, 32), DECODE_PHI, DECODE_WHISPER,
+                 (2, 6, 6, 128, 64, "edges")]
 # every D, causal and bidirectional, Lq < Lk, ragged L (not a multiple of
 # the tiles), L < 16, and Hq / Hkv of 1, 3 and 8
 FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
@@ -335,7 +395,9 @@ FLASH_PARITY = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                 (2, 8, 1, 200, 333, 96, True), (1, 3, 1, 9, 9, 128, True),
                 (1, 24, 8, 13, 13, 96, False), (1, 4, 4, 150, 150, 32, False),
                 (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False),
-                FLASH_PHI]
+                FLASH_PHI, FLASH_WHISPER_ENC, FLASH_WHISPER_CROSS,
+                (2, 6, 6, 7, 1500, 64, False), (2, 6, 6, 64, 1500, 64, False),
+                (2, 6, 6, 65, 1500, 64, False), (8, 6, 6, 1, 1501, 64, False)]
 # MLA's absorbed decode: deepseek-v2-236b's 128 query heads over its one
 # latent head at D 576 (kv_rank 512 + rope_dim 64), one tensor passed as k
 # and v ("shared"), at the serve phase's 8 lanes; then S 8192, the split
@@ -347,9 +409,11 @@ DECODE_MLA_TIMES = [DECODE_MLA, (8, 128, 1, 8192, 576, "shared")]
 DECODE_PARITY += DECODE_MLA_TIMES + [
     (8, 128, 1, 1024, 576, "shared", "edges"), (2, 6, 1, 96, 576, "shared"),
     (2, 16, 2, 100, 576, "shared"), (2, 4, 1, 96, 48, "shared")]
-DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128), DECODE_PHI]
+DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128), DECODE_PHI,
+                DECODE_WHISPER]
 FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
-               FLASH_BF16_MAIN, FLASH_PHI]
+               FLASH_BF16_MAIN, FLASH_PHI, FLASH_WHISPER_ENC,
+               FLASH_WHISPER_CROSS]
 PARITY_POPS = (64, 2048)
 TIME_POPS = (64, 512, 2048, 4096)
 # mapping-eval edge shapes (B, P, T, W, C): T not a multiple of 4 (4-byte
@@ -2983,6 +3047,199 @@ def _serve_deepseek(device) -> dict:
             "launches_per_decode_iteration": per_iter}
 
 
+def _counted(fn):
+    """``fn()`` with every launch counter and dispatch count set to 0 just
+    before it and read just after: (its result, wall s, launches,
+    dispatches)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.clear_dispatch_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, ops.launch_counts(), ops.dispatch_stats()
+
+
+def _only(launches: dict, disp: dict, want: dict, what: str) -> None:
+    """The launches and dispatches are exactly ``want`` (kernel -> n)."""
+    got = {k: n for k, n in launches.items() if n}
+    want_disp = {f"{k}:cuda": n for k, n in want.items() if n}
+    check(got == {k: n for k, n in want.items() if n} and disp == want_disp,
+          f"{what}: launches {got}, dispatches {disp}; expected {want}")
+
+
+def _whisper_engine(params, cfg, enc_out, impl: str, device) -> tuple:
+    """One orca ``ServingEngine`` run of the phase's 8 requests against
+    ``enc_out`` (one row per slot): a prompt through ``extend`` (its
+    cross-attention through flash at Lq = the prompt, row 0 of enc_out,
+    ROADMAP R5 a), each decode iteration through decode (self) and flash
+    (cross, Lq 1) once per layer. Returns its record and the token
+    streams."""
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(params, cfg, max_batch=SERVE_REQUESTS,
+                        max_len=SERVE_MAX_LEN, impl=impl, device=device,
+                        enc_out=enc_out)
+    res, wall, launches, disp = _counted(
+        lambda: eng.run(_serve_requests(cfg.vocab), _sched("orca")))
+    del eng
+    check(not res.truncated and len(res.finished) == SERVE_REQUESTS
+          and all(len(r.generated) == SERVE_NEW for r in res.finished),
+          f"{WHISPER_ARCH} engine ({impl}): {len(res.finished)} finished")
+    n_dec = sum(1 for st in res.stats if st.n_decode)
+    n = cfg.n_layers
+    want = {"decode_attention": n * n_dec,
+            "flash_attention": n * (n_dec + SERVE_REQUESTS)} \
+        if impl == "kernel" else {}
+    _only(launches, disp, want, f"{WHISPER_ARCH} engine ({impl})")
+    out_tokens = sum(len(r.generated) for r in res.finished)
+    rec = {"phase": "serve", "run": "engine", "arch": WHISPER_ARCH,
+           "impl": impl, "scheduler": "orca", "wall_s": wall,
+           "tokens_per_s": out_tokens / wall, "output_tokens": out_tokens,
+           "iterations": len(res.stats), "decode_iterations": n_dec,
+           "launches": launches, "dispatches": disp}
+    emit(rec)
+    return rec, {r.rid: r.generated for r in res.finished}
+
+
+def _serve_whisper(device) -> dict:
+    """whisper-tiny at full width (4 encoder and 4 decoder blocks, D 64,
+    Hq = Hkv = 6, encoder_len 1,500) with seeded random float32 weights,
+    its audio frontend a stub: ``encode`` of 2 x 1,500 seeded frames, a
+    2 x WHISPER_PROMPT ``prefill`` against them and WHISPER_STEPS
+    teacher-forced ``decode_step``s, each through the kernels against the
+    eager path within LOGIT_REL of the largest value (enc_out, logits),
+    each path's launches counted: 4 flash a call for ``encode``, 8 for
+    ``prefill`` (4 causal self, 4 cross at Lq = 64, Lk = 1,500), 4 decode
+    and 4 flash (cross at Lq 1) a decode step; then one orca engine run
+    through the kernels and one eagerly against one enc_out of 8 rows,
+    their tokens equal. The weights are freed at the end."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import (
+        decode_step,
+        encode,
+        init_cache,
+        init_model,
+        param_count,
+        prefill,
+    )
+
+    arch = get(WHISPER_ARCH)
+    cfg = arch.model
+    check(cfg.encoder_layers == cfg.n_layers == 4 and cfg.head_dim == 64
+          and cfg.n_heads == cfg.n_kv_heads == 6 and cfg.encoder_len == 1500
+          and cfg.cross_attention and arch.modality_stub == "audio",
+          f"{WHISPER_ARCH}: {cfg}")
+    t_run = time.perf_counter()
+    params = init_model(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    emit({"phase": "serve", "run": "init", "arch": WHISPER_ARCH,
+          "params": n_params, "bytes": 4 * n_params,
+          "seconds": time.perf_counter() - t_run})
+    n, n_enc = cfg.n_layers, cfg.encoder_layers
+    gen = torch.Generator(device=device).manual_seed(5)
+    frames = 0.02 * torch.randn((2, cfg.encoder_len, cfg.d_model),
+                                generator=gen, device=device)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(2, WHISPER_PROMPT)), device=device)
+    walls, errs, counts = {}, {}, {}
+    state = {}
+    for impl in ("kernel", "eager"):
+        encode(params, cfg, frames, impl=impl, device=device)   # warm
+        enc, walls[f"encode_{impl}"], launches, disp = _counted(
+            lambda: encode(params, cfg, frames, impl=impl, device=device))
+        _only(launches, disp, {"flash_attention": n_enc} if impl == "kernel"
+              else {}, f"{WHISPER_ARCH} encode ({impl})")
+        counts[f"encode_{impl}"] = launches
+        cache = init_cache(cfg, 2, WHISPER_LEN, torch.float32, device)
+        (logits, cache), walls[f"prefill_{impl}"], launches, disp = _counted(
+            lambda: prefill(params, cfg, toks, cache, impl=impl,
+                            device=device, enc_out=enc))
+        _only(launches, disp, {"flash_attention": 2 * n}
+              if impl == "kernel" else {}, f"{WHISPER_ARCH} prefill ({impl})")
+        counts[f"prefill_{impl}"] = launches
+        state[impl] = (enc, logits, cache)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    errs["enc_out"] = rel(state["kernel"][0], state["eager"][0])
+    errs["prefill_logits"] = rel(state["kernel"][1], state["eager"][1])
+    step_errs, decode_launches = [], {"decode_attention": 0,
+                                      "flash_attention": 0}
+    walls["decode_kernel"] = walls["decode_eager"] = 0.0
+    for step in range(WHISPER_STEPS):
+        tok = state["eager"][1].argmax(-1)
+        for impl in ("kernel", "eager"):
+            enc, _, cache = state[impl]
+            (logits, cache), wall, launches, disp = _counted(
+                lambda: decode_step(params, cfg, tok, cache, impl=impl,
+                                    device=device, enc_out=enc))
+            want = {"decode_attention": n, "flash_attention": n} \
+                if impl == "kernel" else {}
+            _only(launches, disp, want,
+                  f"{WHISPER_ARCH} decode step {step} ({impl})")
+            if impl == "kernel":
+                for k in decode_launches:
+                    decode_launches[k] += launches[k]
+            walls[f"decode_{impl}"] += wall
+            state[impl] = (enc, logits, cache)
+        step_errs.append(rel(state["kernel"][1], state["eager"][1]))
+    errs["decode_logits"] = max(step_errs)
+    for what, err in errs.items():
+        check(err <= LOGIT_REL, f"{WHISPER_ARCH} {what}: kernel vs eager "
+              f"{err} of the largest > {LOGIT_REL}")
+    check(all(torch.isfinite(state[i][1]).all().item() for i in state),
+          f"{WHISPER_ARCH}: non-finite logits")
+    del state
+    rec = {"phase": "serve", "run": "encoder_decoder", "arch": WHISPER_ARCH,
+           "params": n_params, "frames": [2, cfg.encoder_len],
+           "prompt": [2, WHISPER_PROMPT], "decode_steps": WHISPER_STEPS,
+           "tol": LOGIT_REL, "max_rel_err": errs,
+           "decode_max_rel_err_per_step": step_errs,
+           "wall_s": walls,
+           "ms_per_decode_step": {
+               k: 1e3 * walls[f"decode_{k}"] / WHISPER_STEPS
+               for k in ("kernel", "eager")},
+           "launches": {**counts, "decode_kernel": decode_launches},
+           "card": card_line()}
+    emit(rec)
+    gen = torch.Generator(device=device).manual_seed(6)
+    frames = 0.02 * torch.randn((SERVE_REQUESTS, cfg.encoder_len,
+                                 cfg.d_model), generator=gen, device=device)
+    enc_out = encode(params, cfg, frames, impl="kernel", device=device)
+    engine, got = _whisper_engine(params, cfg, enc_out, "kernel", device)
+    eager, want = _whisper_engine(params, cfg, enc_out, "eager", device)
+    equal = sum(got[rid] == want[rid] for rid in want)
+    cmp = {"phase": "serve", "run": "engine_kernel_vs_eager",
+           "arch": WHISPER_ARCH, "scheduler": "orca",
+           "requests": len(want), "equal_streams": equal,
+           "run_s": time.perf_counter() - t_run}
+    emit(cmp)
+    check(equal == len(want), f"{WHISPER_ARCH} engine: {equal} of "
+          f"{len(want)} streams equal through the kernels and eagerly")
+    del params, enc_out
+    torch.cuda.empty_cache()
+    return {"params": n_params, "paths": rec, "engine": engine,
+            "engine_eager": eager, "tokens": cmp,
+            "launches": {
+                "flash_attention": counts["encode_kernel"]["flash_attention"]
+                + counts["prefill_kernel"]["flash_attention"]
+                + decode_launches["flash_attention"]
+                + engine["launches"]["flash_attention"],
+                "decode_attention": decode_launches["decode_attention"]
+                + engine["launches"]["decode_attention"]}}
+
+
 def phase_serve(device) -> dict:
     """The serving path at the full width of llama3.2-3b in float32 (and
     its float32-weights / bfloat16-cache engine run, and the measured
@@ -2991,21 +3248,24 @@ def phase_serve(device) -> dict:
     of ``extend``, decode through the one-step recurrence; only
     ``prefill`` reaches the SSD kernel), then of phi-3-vision-4.2b through
     ``inputs_embeds``, then of deepseek-v2-236b (MLA and MoE) at
-    DEEPSEEK_LAYERS layers. The launch counts of the result line sum every
-    run of the path: decode over llama's engine runs, the measured fleet's
-    serves, llama's scanned decode steps, phi-3's decode steps and kernel
-    engine run, and deepseek-v2's engine run, replay and service; flash
-    over llama's and phi-3's float32 prefills, llama's int8-cache prefill
-    and its scanned prefills; the SSD scan over mamba2's prefill and its
-    scanned prefills."""
+    DEEPSEEK_LAYERS layers, then of whisper-tiny (encoder-decoder). The
+    launch counts of the result line sum every run of the path: decode
+    over llama's engine runs, the measured fleet's serves, llama's scanned
+    decode steps, phi-3's decode steps and kernel engine run,
+    deepseek-v2's engine run, replay and service, and whisper's decode
+    steps and kernel engine run; flash over llama's and phi-3's float32
+    prefills, llama's int8-cache prefill and its scanned prefills, and
+    whisper's encode, prefill, decode steps and kernel engine run; the SSD
+    scan over mamba2's prefill and its scanned prefills."""
     llama = _serve_arch(SERVE_ARCH, SERVE_LAYERS, "flash_attention", device)
     bf16 = _serve_bf16(device)
     mamba = _serve_arch(MAMBA_ARCH, MAMBA_LAYERS, "ssd_scan", device)
     phi = _serve_phi(device)
     deepseek = _serve_deepseek(device)
+    whisper = _serve_whisper(device)
     fleet = llama["fleet"]
     return {"llama": llama, "llama_bf16": bf16, "mamba": mamba, "phi": phi,
-            "deepseek": deepseek,
+            "deepseek": deepseek, "whisper": whisper,
             "launches": {
                 "decode_attention":
                     sum(r["launches"]["decode_attention"]
@@ -3016,17 +3276,215 @@ def phase_serve(device) -> dict:
                     + phi["engine"]["launches"]["decode_attention"]
                     + sum(deepseek[k]["launches"]["decode_attention"]
                           for k in ("engine", "replay", "service"))
-                    + llama["scanned"]["launches"]["decode_attention"],
+                    + llama["scanned"]["launches"]["decode_attention"]
+                    + whisper["launches"]["decode_attention"],
                 "flash_attention":
                     llama["prefill"]["launches"]["flash_attention"]
                     + phi["prefill"]["launches"]["flash_attention"]
                     + llama["int8_cache"]["launches"]["flash_attention"]
-                    + llama["scanned"]["launches"]["flash_attention"],
+                    + llama["scanned"]["launches"]["flash_attention"]
+                    + whisper["launches"]["flash_attention"],
                 "flash_attention_bf16":
                     bf16["prefill"]["launches"]["flash_attention_bf16"],
                 "ssd_scan": mamba["prefill"]["launches"]["ssd_scan"]
                 + mamba["scanned"]["launches"]["ssd_scan"]}}
 
+
+def _train_grad_check(cfg, tcfg, tokens, device) -> dict:
+    """One step's gradients (``loss_and_grads``, remat on) of the model
+    cut to TRAIN_CHECK_LAYERS layers at full width, held to a float64 copy
+    of the same weights on the same tokens: every leaf within GRAD_REL of
+    its largest float64 |g|. (The float64 copy computes its norms, its
+    attention softmax and the loss in float32, as the port does for every
+    weight type.)"""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import init_model
+    from repro_torch.training.train_loop import loss_and_grads
+
+    small = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    p32 = init_model(small, seed=1, device=device).requires_grad_(True)
+    p64 = copy.deepcopy(p32).double()
+    t0 = time.perf_counter()
+    loss32, g32 = loss_and_grads(p32, small, tcfg, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss64, g64 = loss_and_grads(p64, small, tcfg, tokens)
+    errs = {k: float((g32[k].double() - g).abs().max() / g.abs().max())
+            for k, g in g64.items()}
+    worst = max(errs, key=errs.get)
+    rec = {"phase": "train", "run": "float64_gradients", "arch": TRAIN_ARCH,
+           "layers": TRAIN_CHECK_LAYERS,
+           "params": sum(p.numel() for p in p32.parameters()),
+           "tokens": list(tokens.shape), "loss": float(loss32),
+           "loss_float64": float(loss64), "tol": GRAD_REL,
+           "max_rel_grad_err": errs[worst], "worst_leaf": worst,
+           "float32_step_s": wall}
+    emit(rec)
+    check(all(torch.isfinite(g).all().item() for g in g32.values()),
+          f"{TRAIN_ARCH} at {TRAIN_CHECK_LAYERS} layers: non-finite grads")
+    check(errs[worst] <= GRAD_REL, f"{TRAIN_ARCH} at {TRAIN_CHECK_LAYERS} "
+          f"layers: {worst}'s gradient {errs[worst]} of its largest from "
+          f"the float64 copy's > {GRAD_REL}")
+    del p32, p64, g32, g64
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_directional(cfg, tcfg, tokens, device) -> dict:
+    """At full depth (seed-0 weights, remat on): the gradient g of the
+    loss on ``tokens``, and the loss at the weights moved by +-DD_EPS along
+    g / |g|; their central difference must be |g| within DD_REL."""
+    import torch
+
+    from repro_torch.models import init_model
+    from repro_torch.training.optimizer import named_leaves
+    from repro_torch.training.train_loop import loss_and_grads, loss_fn
+
+    params = init_model(cfg, seed=0, device=device).requires_grad_(True)
+    loss, grads = loss_and_grads(params, cfg, tcfg, tokens)
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                for g in grads.values())))
+    leaves = named_leaves(params)
+    moved = []
+    with torch.no_grad():
+        for sign in (1.0, -1.0):
+            for k, p in leaves.items():
+                p.add_(grads[k], alpha=sign * DD_EPS / norm)
+            moved.append(float(loss_fn(params, cfg, tokens)))
+            for k, p in leaves.items():
+                p.add_(grads[k], alpha=-sign * DD_EPS / norm)
+    del params, grads, leaves
+    torch.cuda.empty_cache()
+    slope = (moved[0] - moved[1]) / (2 * DD_EPS)
+    rec = {"phase": "train", "run": "directional_derivative",
+           "arch": TRAIN_ARCH, "layers": cfg.n_layers, "loss": float(loss),
+           "grad_norm": norm, "eps": DD_EPS, "loss_plus": moved[0],
+           "loss_minus": moved[1], "central_difference": slope,
+           "rel_err": abs(slope / norm - 1), "tol": DD_REL}
+    emit(rec)
+    check(rec["rel_err"] <= DD_REL, f"{TRAIN_ARCH}: the loss's slope along "
+          f"its gradient {slope} is not the gradient's norm {norm}")
+    return rec
+
+
+def _train_steps(cfg, tcfg, batches, device, label: str) -> dict:
+    """TRAIN_STEPS ``make_train_step`` steps from the seed-0 init under
+    ``tcfg``, the counts set to 0 just before and read just after (no
+    kernel may launch: training is eager); the record, its losses finite.
+    The model is freed at the end."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.training.train_loop import (
+        init_train_state,
+        loss_fn,
+        make_train_step,
+    )
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params, state = init_train_state(0, cfg, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, tcfg)
+    losses, norms, lrs, walls = [], [], [], []
+
+    def run():
+        nonlocal params, state
+        for tok in batches:
+            t0 = time.perf_counter()
+            params, state, stats = step(params, state, tok)
+            losses.append(float(stats["loss"]))      # syncs
+            walls.append(time.perf_counter() - t0)
+            norms.append(float(stats["grad_norm"]))
+            lrs.append(float(stats["lr"]))
+
+    _, _, launches, disp = _counted(run)
+    n_params = sum(p.numel() for p in params.parameters())
+    with torch.no_grad():
+        after = float(loss_fn(params, cfg, batches[0]))
+    del params, state
+    torch.cuda.empty_cache()
+    _only(launches, disp, {}, f"{TRAIN_ARCH} training ({label})")
+    rec = {"phase": "train", "run": "steps", "settings": label,
+           "arch": TRAIN_ARCH, "params": n_params,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat": tcfg.remat,
+           "opt": dataclasses.asdict(tcfg.opt), "losses": losses,
+           "batch0_loss_after": after,
+           "grad_norms": norms, "lrs": lrs, "step_wall_s": walls,
+           "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / w for w in walls],
+           "init_s": init_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "launches": launches, "card": card_line()}
+    emit(rec)
+    check(all(math.isfinite(x) for x in losses + norms + [after]),
+          f"{TRAIN_ARCH} training ({label}): losses {losses}, grad norms "
+          f"{norms}")
+    return rec
+
+
+def phase_train(device) -> dict:
+    """Training at llama3.2-3b's full width (28 layers, 3.21 B float32
+    parameters; weights, gradients and AdamW's two moments ~51 GB), eager
+    torch as the reference's training is: first the gradient check at
+    TRAIN_CHECK_LAYERS layers (:func:`_train_grad_check`) and
+    ``impl="kernel"`` under grad raising ``ValueError``; then, for each of
+    TRAIN_OPTS, TRAIN_STEPS ``make_train_step`` steps with remat on, on
+    ``TokenStream`` seed 0 (TRAIN_BATCH x TRAIN_SEQ tokens), from one
+    seeded init (:func:`_train_steps`): the step walls and the peak of
+    ``torch.cuda.max_memory_allocated``; under the gated settings the last
+    loss below the first."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import forward, init_model
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(device)
+    cfg = get(TRAIN_ARCH).model
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batches = [torch.as_tensor(next(stream), device=device)
+               for _ in range(TRAIN_STEPS)]
+    tcfgs = {label: TrainConfig(remat=True, opt=AdamWConfig(**opt))
+             for label, opt in TRAIN_OPTS.items()}
+    grads = _train_grad_check(cfg, tcfgs["gated"], batches[0], device)
+    slope = _train_directional(cfg, tcfgs["gated"], batches[0], device)
+    one = dataclasses.replace(cfg, n_layers=1)
+    small = init_model(one, seed=2, device=device).requires_grad_(True)
+    try:
+        forward(small, one, batches[0][:1, :8], impl="kernel", device=device)
+        raised = False
+    except ValueError:
+        raised = True
+    del small
+    check(raised, "impl='kernel' under grad did not raise")
+    runs = {label: _train_steps(cfg, tcfg, batches, device, label)
+            for label, tcfg in tcfgs.items()}
+    losses = runs["gated"]["losses"]
+    check(losses[-1] < losses[0] and runs["gated"]["batch0_loss_after"]
+          < losses[0], f"{TRAIN_ARCH} training: losses {losses}, batch 0 "
+          f"after them {runs['gated']['batch0_loss_after']}: not lower")
+    rec = {"phase": "train", "run": "summary", "arch": TRAIN_ARCH,
+           "memory_left_by_serve": left, "kernel_under_grad_raises": raised,
+           "losses": {k: r["losses"] for k, r in runs.items()},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    return {"steps": runs, "float64_gradients": grads,
+            "directional_derivative": slope}
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
@@ -3517,6 +3975,9 @@ def main(argv=None) -> int:
     if "serve" not in phases:
         return 0
     serve = phase_serve(device)
+    if "train" not in phases:
+        return 0
+    phase_train(device)
     if "times" not in phases:
         return 0
     at_main = phase_times(ev, runs)

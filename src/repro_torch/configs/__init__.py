@@ -28,4 +28,5 @@ def _load_all():
         phi_3_vision_4_2b,
         qwen1_5_0_5b,
         qwen2_1_5b,
+        whisper_tiny,
     )

@@ -1,10 +1,9 @@
 """Architecture registry of the port: the dense, MLA and MoE attention,
-Mamba-2 and hybrid configs the serving slices run (and the paper's own
+Mamba-2, hybrid and encoder-decoder configs (and the paper's own
 evaluation models), each paired with its input shapes, a reduced
 smoke-test config, and the DSE engine's
 :class:`~repro_torch.core.workload.LLMSpec`. A copy of the JAX package's
-``configs/base.py`` with the imports rewritten; the other architectures
-come with the slices that port their model families."""
+``configs/base.py`` with the imports rewritten."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,5 +1,7 @@
 """Serving launcher: run the engine against a synthetic request stream under
-any of the three schedulers, on the card unless ``--device cpu``.
+any of the three schedulers, on the card unless ``--device cpu``. An
+encoder-decoder model (whisper-tiny) serves against the encoding of
+``max_batch`` seeded frame sets, one per slot.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --scheduler chunked_prefill --requests 8
@@ -10,10 +12,11 @@ import argparse
 import json
 
 import numpy as np
+import torch
 
 from ..configs import all_archs
 from ..core.timing import resolve_device
-from ..models.transformer import init_model
+from ..models.transformer import encode, init_model
 from ..serving import SCHEDULERS, ServeRequest
 from ..serving.engine import ServingEngine, summarize
 
@@ -37,6 +40,13 @@ def main(argv=None):
     cfg = all_archs()[args.arch].reduced()
     params = init_model(cfg, seed=args.seed, device=device)
 
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        frames = torch.randn((args.max_batch, cfg.encoder_len, cfg.d_model),
+                             generator=gen, device=device) * 0.02
+        enc_out = encode(params, cfg, frames, impl="kernel", device=device)
+
     rng = np.random.default_rng(args.seed)
     reqs = [
         ServeRequest(i, rng.integers(0, cfg.vocab,
@@ -48,7 +58,7 @@ def main(argv=None):
              if args.scheduler == "chunked_prefill"
              else SCHEDULERS[args.scheduler]())
     eng = ServingEngine(params, cfg, max_batch=args.max_batch,
-                        max_len=args.max_len, device=device)
+                        max_len=args.max_len, device=device, enc_out=enc_out)
     finished, stats = eng.run(reqs, sched)
     print(json.dumps(summarize(finished, stats), indent=1))
     for r in finished[:3]:

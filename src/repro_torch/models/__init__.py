@@ -1,6 +1,6 @@
 """The port's model stack (MHA / GQA / MLA attention, dense or MoE FFNs,
-Mamba-2 and hybrid decoder LMs) in torch, unscanned and over stacked
-layers."""
+Mamba-2 and hybrid decoder LMs, encoder-decoder models) in torch,
+unscanned and over stacked layers."""
 from .stacked import (  # noqa: F401
     layer_period,
     stack_cache,
@@ -13,6 +13,8 @@ from .transformer import (  # noqa: F401
     Transformer,
     decode_step,
     decode_step_scanned,
+    encode,
+    encode_scanned,
     extend,
     forward,
     forward_scanned,

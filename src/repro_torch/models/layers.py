@@ -5,8 +5,10 @@ parameters carry the JAX package's pytree names (``w``/``b`` of a dense
 layer, ``g``/``b`` of a norm, ``e`` of an embedding), and the apply
 functions take the module the way the JAX package's take the parameter
 dict. Dense weights keep the JAX layout ``(d_in, d_out)`` with
-``y = x @ w``, so carrying weights across is a copy. Parameters never
-require grad: the port's model stack serves, it does not train yet.
+``y = x @ w``, so carrying weights across is a copy. Parameters are made
+with ``requires_grad=False``, so serving builds no autograd graph; the
+train loop turns it on (:func:`repro_torch.training.train_loop.
+init_train_state`).
 """
 from __future__ import annotations
 

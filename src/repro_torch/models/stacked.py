@@ -14,11 +14,13 @@ order, as views ``leaf[k]``: no weight is copied per call, and scanned
 equals unscanned bit for bit.
 
 Parameters: :func:`stack_params` gives a :class:`StackedParams`, whose
-``embed``, ``final_norm`` and ``lm_head`` are the source's own modules
-(not copies) and whose ``slots[j]`` maps each parameter name of a block
-(``attn.wq.w``) to its stacked tensor; ``layers()`` reads it as the
-unscanned entry points read a :class:`~.transformer.Transformer`, with
-layer k * p + j's block step k of slot j as a :class:`BlockView`. Caches:
+``embed``, ``final_norm``, ``lm_head`` and ``enc_norm`` are the source's
+own modules (not copies) and whose ``slots[j]`` maps each parameter name
+of a block (``attn.wq.w``) to its stacked tensor; an encoder's blocks are
+stacked at period 1 into ``enc_stacked`` (the reference's name).
+``layers()`` reads it as the unscanned entry points read a
+:class:`~.transformer.Transformer`, with layer k * p + j's block step k
+of slot j as a :class:`BlockView`. Caches:
 :func:`stack_cache` gives one dict of stacked tensors per slot and
 :func:`unstack_cache` its per-layer views; the scanned serving paths
 write the attention rows through the views in place and copy a layer's
@@ -113,43 +115,74 @@ class BlockView:
         return x
 
 
+def _views(blocks, period: int, templates: list, what: str) -> list:
+    """Blocks in layer order as :class:`BlockView`s of their stacked
+    slots, after checking each slot against its template block."""
+    for j, t in enumerate(templates):
+        names = dict(t.named_parameters())
+        if set(names) != set(blocks[j]) or any(
+                blocks[j][n].shape[1:] != names[n].shape for n in names):
+            raise ValueError(f"slot {j}'s blocks are not {what}'s "
+                             f"Block({j})")
+    steps = next(iter(blocks[0].values())).shape[0]
+    return [BlockView(templates[j], blocks[j], k)
+            for k in range(steps) for j in range(period)]
+
+
 class StackedParams:
     """A model's parameters in the scanned layout (:func:`stack_params`).
     ``embed``, ``final_norm`` and, untied, ``lm_head`` are the source's
     own modules; ``slots[j]`` maps each parameter name of slot j's blocks
-    to a tensor with a leading [n_steps] dim."""
+    to a tensor with a leading [n_steps] dim. An encoder-decoder model
+    adds the source's ``enc_norm`` and ``enc_stacked``, its encoder blocks
+    stacked at period 1 (one slot)."""
+
+    _SHARED = ("embed", "final_norm", "lm_head", "enc_norm")
 
     def __init__(self, params, cfg):
         from .transformer import Block
 
+        dtype = params.embed.e.dtype
         self.embed, self.final_norm = params.embed, params.final_norm
         if not cfg.tie_embeddings:
             self.lm_head = params.lm_head
         self.period = layer_period(cfg)
         self.slots = stack_blocks(params.blocks, self.period)
         self.n_steps = cfg.n_layers // self.period
-        templates = [Block(cfg, j, params.embed.e.dtype, "meta", None)
-                     for j in range(self.period)]
-        for j, t in enumerate(templates):
-            names = dict(t.named_parameters())
-            if set(names) != set(self.slots[j]) or any(
-                    self.slots[j][n].shape[1:] != names[n].shape
-                    for n in names):
-                raise ValueError(f"slot {j}'s blocks are not "
-                                 f"{cfg.name}'s Block({j})")
-        self._layers = SimpleNamespace(
-            **{name: getattr(self, name)
-               for name in ("embed", "final_norm", "lm_head")
-               if hasattr(self, name)},
-            blocks=[BlockView(templates[j], self.slots[j], k)
-                    for k in range(self.n_steps)
-                    for j in range(self.period)])
+        templates = [Block(cfg, j, dtype, "meta", None,
+                           cfg.cross_attention) for j in range(self.period)]
+        layers = {name: getattr(self, name) for name in self._SHARED
+                  if hasattr(self, name)}
+        layers["blocks"] = _views(self.slots, self.period, templates,
+                                  cfg.name)
+        if cfg.encoder_layers > 0:
+            self.enc_norm = params.enc_norm
+            self.enc_stacked = stack_blocks(params.enc_blocks, 1)
+            layers.update(enc_norm=self.enc_norm, enc_blocks=_views(
+                self.enc_stacked, 1, [Block(cfg, 0, dtype, "meta", None)],
+                f"{cfg.name}'s encoder"))
+        # a closure over the tensors, not a bound method: the namespace
+        # must not refer back to self, or the stacked copy would live on
+        # in a reference cycle until the garbage collector ran
+        tensors = tuple(self.parameters())
+        self._layers = SimpleNamespace(**layers,
+                                       parameters=lambda: iter(tensors))
+
+    def parameters(self):
+        """Every tensor of the model: the shared modules' parameters and
+        the stacked tensors."""
+        for name in self._SHARED:
+            if hasattr(self, name):
+                yield from getattr(self, name).parameters()
+        for slot in self.slots + getattr(self, "enc_stacked", []):
+            yield from slot.values()
 
     def layers(self) -> SimpleNamespace:
         """The model in layer order, as the unscanned entry points read a
         :class:`~.transformer.Transformer`: ``embed``, ``final_norm``, an
-        untied ``lm_head`` and ``blocks``, whose entry ``k * period + j``
-        is step k of slot j."""
+        untied ``lm_head``, ``blocks``, whose entry ``k * period + j`` is
+        step k of slot j, an encoder's ``enc_blocks`` and ``enc_norm``, and
+        ``parameters()``."""
         return self._layers
 
 

@@ -1,6 +1,8 @@
-"""Decoder-only LMs from one config: dense MHA / GQA / MLA, Mamba-2 and
-hybrid attention + Mamba-2 stacks (RMSNorm or LayerNorm, gated or ungated
-FFN, MoE FFN or none, tied or untied head, optional QKV bias).
+"""LMs from one config: dense MHA / GQA / MLA, Mamba-2 and hybrid
+attention + Mamba-2 stacks (RMSNorm or LayerNorm, gated or ungated FFN,
+MoE FFN or none, tied or untied head, optional QKV bias), and
+encoder-decoder models (whisper: an encoder stack, decoder blocks with
+cross-attention).
 
 The model is a tree of :class:`torch.nn.Module` whose parameter names
 follow the JAX package's pytree paths (``blocks.3.attn.wq.w``), with dense
@@ -9,17 +11,31 @@ carries a JAX parameter tree across by copying. The apply functions keep
 the JAX package's signatures (``params`` first, then ``cfg``).
 
 Paths:
-* ``forward``      — full-sequence logits (``impl="eager"`` by default: the
-  training path; the kernels have no backward);
+* ``forward``      — full-sequence logits, differentiable (``impl="eager"``
+  by default: the training path; ``remat`` recomputes each block in the
+  backward pass). The kernels have no backward, so ``impl="kernel"``
+  raises ``ValueError`` where a weight or input requires grad and grad
+  is enabled;
 * ``prefill``      — fill caches with whole prompts, return last logits;
 * ``extend``       — continue caches by a (padded) chunk;
-* ``decode_step``  — one token with caches (the serving inner loop).
+* ``decode_step``  — one token with caches (the serving inner loop);
+* ``encode``       — the encoder stack (bidirectional) over frame
+  embeddings [B, Le, d_model] (the audio frontend is a stub upstream).
+
+Encoder-decoder: ``forward``, ``prefill``, ``extend`` and ``decode_step``
+take ``enc_out`` [B, Le, d_model]; a decoder block with ``cross`` then
+attends from its residual stream to ``enc_out`` (no RoPE, not causal; its
+k / v are projected from ``enc_out`` anew at every call, with no cache, as
+in the reference). Without ``enc_out`` the serving paths skip
+cross-attention and ``forward`` encodes zero frames first, as the
+reference does.
 
 Scan over layers (parameters and caches in the stacked layout of
-:mod:`.stacked`): ``forward_scanned``, ``prefill_scanned`` and
-``decode_step_scanned`` call ``forward``, ``prefill`` and ``decode_step``
-on the stacked tensors read in layer order (views, no copy), so they equal
-them bit for bit by construction.
+:mod:`.stacked`): ``forward_scanned``, ``prefill_scanned``,
+``decode_step_scanned`` and ``encode_scanned`` call ``forward``,
+``prefill``, ``decode_step`` and ``encode`` on the stacked tensors read in
+layer order (views, no copy), so they equal them bit for bit by
+construction.
 
 ``forward``, ``prefill`` and their scanned twins take ``inputs_embeds``
 [B, L, d_model] in place of tokens (a vision or audio frontend's output,
@@ -40,9 +56,6 @@ only under ``impl="eager"`` (see :mod:`.attention`); its serving paths
 ``dtype=torch.int8`` or under ``REPRO_CACHE_QUANT=1``, and float32 Mamba
 states either way; ``prefill`` and ``decode_step`` take them, ``extend``
 refuses them (see :mod:`.attention`).
-
-Encoder-decoder models come in a later slice and raise
-``NotImplementedError`` (``encode``, ``encode_scanned``).
 """
 from __future__ import annotations
 
@@ -50,10 +63,12 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.timing import resolve_device
 from .attention import (
     Attention,
+    _sdpa,
     attention_decode,
     attention_extend,
     attention_prefill,
@@ -85,8 +100,6 @@ from .mamba2 import (
 )
 from .moe import MoE, apply_moe
 from .stacked import StackedParams, unstack_cache
-
-_LATER = "a later slice of the port"
 
 
 @dataclass(frozen=True)
@@ -146,8 +159,6 @@ def check_supported(cfg: ModelConfig) -> None:
     run yet."""
     if cfg.mixer not in ("attn", "mamba", "hybrid"):
         raise NotImplementedError(f"mixer {cfg.mixer!r} is not ported")
-    if cfg.encoder_layers > 0 or cfg.cross_attention:
-        raise NotImplementedError(f"encoder-decoder models come in {_LATER}")
     if _has_attention(cfg) and cfg.attn_kind not in ("mha", "gqa", "mla"):
         raise NotImplementedError(f"attention kind {cfg.attn_kind!r} is not "
                                   "ported")
@@ -192,16 +203,20 @@ class FFN(nn.Module):
 
 class Block(nn.Module):
     """``norm1`` and ``attn`` or ``mamba`` (as ``cfg.mixer_kind(i)``
-    says), then ``norm2`` and ``moe`` or ``ffn``, or neither (as
-    ``cfg.ffn_kind(i)`` says)."""
+    says), with ``cross=True`` also ``norm_x`` and ``cross`` (an
+    :class:`Attention` over the encoder's output), then ``norm2`` and
+    ``moe`` or ``ffn``, or neither (as ``cfg.ffn_kind(i)`` says)."""
 
-    def __init__(self, cfg, i, dtype, device, generator):
+    def __init__(self, cfg, i, dtype, device, generator, cross=False):
         super().__init__()
         self.norm1 = _norm_module(cfg, dtype, device)
         if cfg.mixer_kind(i) == "attn":
             self.attn = Attention(cfg, dtype, device, generator)
         else:
             self.mamba = Mamba(cfg, dtype, device, generator)
+        if cross:
+            self.norm_x = _norm_module(cfg, dtype, device)
+            self.cross = Attention(cfg, dtype, device, generator)
         kind = cfg.ffn_kind(i)
         if kind != "none":
             self.norm2 = _norm_module(cfg, dtype, device)
@@ -212,10 +227,13 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """``embed``, ``blocks`` (a list of :class:`Block`), ``final_norm`` and,
-    untied, ``lm_head``. With a generator every weight is drawn as the JAX
-    package's ``init_model`` draws it (other random numbers); without one
-    the weights are left uninitialised, to be copied in."""
+    """``embed``, ``blocks`` (a list of :class:`Block`, with
+    cross-attention where ``cfg.cross_attention``), ``final_norm``,
+    untied, ``lm_head`` and, for an encoder-decoder model, ``enc_blocks``
+    (without cross-attention) and ``enc_norm``. With a generator every
+    weight is drawn as the JAX package's ``init_model`` draws it (other
+    random numbers); without one the weights are left uninitialised, to be
+    copied in."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None,
                  generator=None):
@@ -224,11 +242,17 @@ class Transformer(nn.Module):
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype, device,
                                generator)
         self.final_norm = _norm_module(cfg, dtype, device)
-        self.blocks = nn.ModuleList(Block(cfg, i, dtype, device, generator)
-                                    for i in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, i, dtype, device, generator, cfg.cross_attention)
+            for i in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab, False, dtype,
                                  device, generator)
+        if cfg.encoder_layers > 0:
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, i, dtype, device, generator)
+                for i in range(cfg.encoder_layers))
+            self.enc_norm = _norm_module(cfg, dtype, device)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -264,6 +288,35 @@ def _cache_tensors(cache):
                  for k, t in layer.items())
 
 
+def _enc_out(cfg: ModelConfig, enc_out):
+    """``enc_out`` checked for device (none where it is ``None``), after
+    checking that it is [B, Le, d_model] of an encoder-decoder model."""
+    if enc_out is None:
+        return ()
+    if not cfg.cross_attention:
+        raise ValueError(f"{cfg.name} has no cross-attention to take "
+                         f"enc_out")
+    if enc_out.dim() != 3 or enc_out.shape[-1] != cfg.d_model:
+        raise ValueError(f"enc_out of shape {tuple(enc_out.shape)}, not "
+                         f"[B, Le, {cfg.d_model}]")
+    return (("enc_out", enc_out),)
+
+
+def _records_grad(params, impl: str, *tensors) -> bool:
+    """Whether autograd records this call: grad is enabled and a weight or
+    one of ``tensors`` requires grad. ``impl="kernel"`` is then refused:
+    the hand kernels are not ``autograd.Function``s, so their outputs
+    would carry no gradient and the projections before them would get
+    wrong ones."""
+    grad = torch.is_grad_enabled() and (
+        any(t.requires_grad for t in params.parameters())
+        or any(t is not None and t.requires_grad for t in tensors))
+    if grad and impl == "kernel":
+        raise ValueError("impl='kernel' runs forward-only kernels with no "
+                         "backward; compute gradients with impl='eager'")
+    return grad
+
+
 # --------------------------------------------------------------------------
 # apply
 # --------------------------------------------------------------------------
@@ -283,6 +336,43 @@ def _ffn_residual(blk, cfg, x):
     if hasattr(blk, "moe"):
         return x + apply_moe(blk.moe, h, cfg)
     return x + _ffn_apply(blk.ffn, cfg, h)
+
+
+def _cross_attention(p, x, enc_out, cfg, impl):
+    """Decoder -> encoder attention: q from x [B, L, d], k / v from
+    ``enc_out`` [B, Le, d], no RoPE, not causal (Lq = L, Lk = Le: the
+    flash kernel under ``impl="kernel"``, with Lq 1 at decode)."""
+    b, l, _ = x.shape
+    le = enc_out.shape[1]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = dense(p.wq, x).reshape(b, l, hq, hd).transpose(1, 2)
+    k = dense(p.wk, enc_out).reshape(b, le, hkv, hd).transpose(1, 2)
+    v = dense(p.wv, enc_out).reshape(b, le, hkv, hd).transpose(1, 2)
+    y = _sdpa(q, k, v, causal=False, offset=0, impl=impl)
+    return dense(p.wo, y.transpose(1, 2).reshape(b, l, -1))
+
+
+def _cross_residual(blk, cfg, x, enc_out, impl):
+    """x plus the cross-attention of a block that has one, where
+    ``enc_out`` is given (the reference's positions for it are unused:
+    cross-attention takes no RoPE)."""
+    if enc_out is None or not hasattr(blk, "cross"):
+        return x
+    h = _norm(cfg, blk.norm_x, x)
+    return x + _cross_attention(blk.cross, h, enc_out, cfg, impl)
+
+
+def _block_train(blk, cfg, i, x, positions, rope, causal, impl,
+                 enc_out=None):
+    """One block over the full sequence (``forward``, ``encode``)."""
+    h = _norm(cfg, blk.norm1, x)
+    if cfg.mixer_kind(i) == "attn":
+        h = attention_train(blk.attn, h, cfg, positions, rope,
+                            causal=causal, impl=impl)
+    else:
+        h = mamba_train(blk.mamba, h, cfg, impl=impl)
+    x = _cross_residual(blk, cfg, x + h, enc_out, impl)
+    return _ffn_residual(blk, cfg, x)
 
 
 def _logits(params, cfg, x):
@@ -309,29 +399,66 @@ def _embed_inputs(params, tokens, inputs_embeds):
         else inputs_embeds
 
 
-def forward(params, cfg: ModelConfig, tokens=None, impl="eager", device=None,
-            inputs_embeds=None):
-    """Full-sequence forward -> logits [B, L, vocab]. ``inputs_embeds``
-    [B, L, d_model], where given, takes the place of the embedded
-    ``tokens``."""
+def encode(params, cfg: ModelConfig, inputs_embeds, impl="eager",
+           device=None):
+    """The encoder stack (bidirectional self-attention) over frame
+    embeddings ``inputs_embeds`` [B, Le, d_model] -> [B, Le, d_model]
+    (``enc_out``). Differentiable, as ``forward`` is."""
+    if cfg.encoder_layers <= 0:
+        raise ValueError(f"{cfg.name} has no encoder")
     check_full_sequence_impl(cfg, impl)
     dev = _check_device(device, params,
-                        *_inputs(cfg, tokens, inputs_embeds))
-    with torch.no_grad():
-        x = _embed_inputs(params, tokens, inputs_embeds)
-        b, l, _ = x.shape
-        rope = _rope(cfg, max(cfg.max_seq, l), dev)
-        positions = torch.arange(l, device=dev).expand(b, l)
-        for i, blk in enumerate(params.blocks):
-            h = _norm(cfg, blk.norm1, x)
-            if cfg.mixer_kind(i) == "attn":
-                h = attention_train(blk.attn, h, cfg, positions, rope,
-                                    causal=True, impl=impl)
-            else:
-                h = mamba_train(blk.mamba, h, cfg, impl=impl)
-            x = _ffn_residual(blk, cfg, x + h)
-        x = _norm(cfg, params.final_norm, x)
-        return _logits(params, cfg, x)
+                        *_inputs(cfg, None, inputs_embeds))
+    _records_grad(params, impl, inputs_embeds)
+    return _encode(params, cfg, inputs_embeds, impl, dev)
+
+
+def _encode(params, cfg, x, impl, dev):
+    b, le, _ = x.shape
+    rope = rope_freqs(cfg.head_dim, max(cfg.max_seq, le), cfg.rope_theta,
+                      dev)
+    positions = torch.arange(le, device=dev).expand(b, le)
+    for i, blk in enumerate(params.enc_blocks):
+        x = _block_train(blk, cfg, i, x, positions, rope, causal=False,
+                         impl=impl)
+    return _norm(cfg, params.enc_norm, x)
+
+
+def forward(params, cfg: ModelConfig, tokens=None, impl="eager", device=None,
+            inputs_embeds=None, enc_out=None, remat: bool = False):
+    """Full-sequence forward -> logits [B, L, vocab], differentiable where
+    grad is enabled (the weights are made with ``requires_grad=False``,
+    so inference builds no graph). ``inputs_embeds`` [B, L, d_model], where
+    given, takes the place of the embedded ``tokens``. An encoder-decoder
+    model attends to ``enc_out`` [B, Le, d_model], or, without it, to the
+    encoding of zero frames [B, encoder_len, d_model], as the reference
+    does. ``remat`` recomputes each decoder block in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations.
+    ``impl="kernel"`` under grad raises ``ValueError``."""
+    check_full_sequence_impl(cfg, impl)
+    dev = _check_device(device, params,
+                        *_inputs(cfg, tokens, inputs_embeds),
+                        *_enc_out(cfg, enc_out))
+    grad = _records_grad(params, impl, inputs_embeds, enc_out)
+    x = _embed_inputs(params, tokens, inputs_embeds)
+    b, l, _ = x.shape
+    rope = _rope(cfg, max(cfg.max_seq, l), dev)
+    positions = torch.arange(l, device=dev).expand(b, l)
+    if cfg.encoder_layers > 0 and enc_out is None:
+        # the encoder input stub: callers normally pass real frame
+        # embeddings
+        enc_out = _encode(params, cfg, torch.zeros(
+            (b, cfg.encoder_len, cfg.d_model), dtype=x.dtype, device=dev),
+            impl, dev)
+    for i, blk in enumerate(params.blocks):
+        if remat and grad:
+            x = checkpoint(_block_train, blk, cfg, i, x, positions, rope,
+                           True, impl, enc_out, use_reentrant=False)
+        else:
+            x = _block_train(blk, cfg, i, x, positions, rope, True, impl,
+                             enc_out)
+    x = _norm(cfg, params.final_norm, x)
+    return _logits(params, cfg, x)
 
 
 # --------------------------------------------------------------------------
@@ -354,14 +481,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, impl="kernel",
-            device=None, inputs_embeds=None):
+            device=None, inputs_embeds=None, enc_out=None):
     """Fill caches with the prompt; returns (last logits [B, vocab],
     cache). ``inputs_embeds`` [B, L, d_model], where given, takes the place
-    of the embedded ``tokens`` (pass ``tokens=None``)."""
+    of the embedded ``tokens`` (pass ``tokens=None``); ``enc_out``
+    [B, Le, d_model], where given, is what the cross-attention attends
+    to."""
     check_full_sequence_impl(cfg, impl)
     dev = _check_device(device, params,
                         *_inputs(cfg, tokens, inputs_embeds),
-                        *_cache_tensors(cache))
+                        *_enc_out(cfg, enc_out), *_cache_tensors(cache))
     with torch.no_grad():
         x = _embed_inputs(params, tokens, inputs_embeds)
         b, l, _ = x.shape
@@ -376,22 +505,25 @@ def prefill(params, cfg: ModelConfig, tokens, cache, impl="kernel",
             else:
                 h, c = mamba_prefill(blk.mamba, h, cfg, c, impl=impl)
             new_cache.append(c)
-            x = _ffn_residual(blk, cfg, x + h)
+            x = _cross_residual(blk, cfg, x + h, enc_out, impl)
+            x = _ffn_residual(blk, cfg, x)
         x = _norm(cfg, params.final_norm, x)
         return _logits(params, cfg, x[:, -1]), new_cache
 
 
 def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
-           length=None, device=None):
+           length=None, device=None, enc_out=None):
     """Chunked-prefill continuation: process a multi-token chunk against the
     existing caches. tokens: [B, L] -> (last logits [B, vocab], cache).
 
     ``length`` (int or [B], optional) marks the true chunk length when
     ``tokens`` is right-padded to a bucket size: pad positions neither
-    advance the caches nor pick the output logit."""
+    advance the caches nor pick the output logit. ``enc_out``
+    [B, Le, d_model], where given, is what the cross-attention attends
+    to (every position of the chunk, pads included)."""
     check_impl(impl)
     dev = _check_device(device, params, ("tokens", tokens),
-                        *_cache_tensors(cache))
+                        *_enc_out(cfg, enc_out), *_cache_tensors(cache))
     with torch.no_grad():
         x = embed(params.embed, tokens)
         b, l, _ = x.shape
@@ -408,7 +540,8 @@ def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
                 h, c = mamba_extend(blk.mamba, h, cfg, c, impl=impl,
                                     length=adv)
             new_cache.append(c)
-            x = _ffn_residual(blk, cfg, x + h)
+            x = _cross_residual(blk, cfg, x + h, enc_out, impl)
+            x = _ffn_residual(blk, cfg, x)
         x = _norm(cfg, params.final_norm, x)
         if adv is None:
             last = x[:, -1]
@@ -459,14 +592,16 @@ def _mask_cache(old, new, active):
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, impl="kernel",
-                active=None, device=None):
+                active=None, device=None, enc_out=None):
     """One decode step. token: [B] -> (logits [B, vocab], cache).
     ``active``: optional [B] bool — inactive slots' caches are left
-    untouched (continuous batching with partially-filled slots)."""
+    untouched (continuous batching with partially-filled slots).
+    ``enc_out`` [B, Le, d_model], where given, is what the cross-attention
+    attends to, one row per slot."""
     check_impl(impl)
     extra = () if active is None else (("active", active),)
     dev = _check_device(device, params, ("token", token), *extra,
-                        *_cache_tensors(cache))
+                        *_enc_out(cfg, enc_out), *_cache_tensors(cache))
     with torch.no_grad():
         x = embed(params.embed, token)[:, None, :]
         rope = _rope(cfg, cfg.max_seq, dev)
@@ -479,7 +614,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, impl="kernel",
             else:
                 h, c = mamba_decode(blk.mamba, h, cfg, c, impl=impl)
             new_cache.append(_mask_cache(old, c, active))
-            x = _ffn_residual(blk, cfg, x + h)
+            x = _cross_residual(blk, cfg, x + h, enc_out, impl)
+            x = _ffn_residual(blk, cfg, x)
         x = _norm(cfg, params.final_norm, x)
         return _logits(params, cfg, x[:, 0]), new_cache
 
@@ -512,48 +648,43 @@ def _write_back(views, new_cache) -> None:
 
 
 def forward_scanned(params, cfg: ModelConfig, tokens=None, impl="eager",
-                    device=None, inputs_embeds=None, remat: bool = True):
-    """``forward`` over stacked params (:func:`.stacked.stack_params`).
-    ``remat`` is accepted as the reference takes it and has no effect: the
-    port's forward is inference-only (no activations are kept for a
-    backward pass)."""
+                    device=None, inputs_embeds=None, enc_out=None,
+                    remat: bool = True):
+    """``forward`` over stacked params (:func:`.stacked.stack_params`),
+    with ``remat`` on by default as in the reference."""
     return forward(_layers(params, cfg), cfg, tokens, impl, device,
-                   inputs_embeds)
+                   inputs_embeds, enc_out, remat)
+
+
+def encode_scanned(params, cfg: ModelConfig, inputs_embeds, impl="eager",
+                   device=None):
+    """``encode`` over stacked params (the encoder blocks stacked at
+    period 1)."""
+    return encode(_layers(params, cfg), cfg, inputs_embeds, impl, device)
 
 
 def prefill_scanned(params, cfg: ModelConfig, tokens, cache_slots,
-                    impl="kernel", device=None, inputs_embeds=None):
+                    impl="kernel", device=None, inputs_embeds=None,
+                    enc_out=None):
     """``prefill`` over stacked params and caches (:func:`.stacked.
     stack_cache`): (last logits [B, vocab], ``cache_slots``, written in
     place)."""
     layers = _layers(params, cfg)
     views = unstack_cache(cache_slots, cfg)
     logits, new_cache = prefill(layers, cfg, tokens, views, impl, device,
-                                inputs_embeds)
+                                inputs_embeds, enc_out)
     _write_back(views, new_cache)
     return logits, cache_slots
 
 
 def decode_step_scanned(params, cfg: ModelConfig, token, cache_slots,
-                        impl="kernel", device=None):
+                        impl="kernel", device=None, enc_out=None):
     """``decode_step`` over stacked params and caches: (logits [B, vocab],
     ``cache_slots``, written in place). Every slot is active, as in the
     reference's scanned decode."""
     layers = _layers(params, cfg)
     views = unstack_cache(cache_slots, cfg)
     logits, new_cache = decode_step(layers, cfg, token, views, impl,
-                                    device=device)
+                                    device=device, enc_out=enc_out)
     _write_back(views, new_cache)
     return logits, cache_slots
-
-
-def _later(name: str):
-    def entry(*args, **kwargs):
-        raise NotImplementedError(f"{name} (encoder-decoder models) comes "
-                                  f"in {_LATER}")
-    entry.__name__ = name
-    return entry
-
-
-encode = _later("encode")
-encode_scanned = _later("encode_scanned")

@@ -11,6 +11,12 @@ per iteration, with the inactive slots masked. A copy of the JAX package's
 engine in which each jitted entry point is an eager call (one per bucket
 size; CUDA graphs are later work) and a slot's cache row is a view of the
 engine's cache, written in place.
+
+An encoder-decoder model serves against ``enc_out`` [max_batch, Le,
+d_model], as the reference does (ROADMAP R5 a): a decode step attends
+each slot to its own row, but every prompt chunk attends to row 0,
+whatever its slot. A request's prompt and its decode therefore see
+different encoder rows unless the rows are equal.
 """
 from __future__ import annotations
 
@@ -75,21 +81,28 @@ class ServingEngine:
     """``params`` (a :class:`~repro_torch.models.Transformer`) must lie on
     ``device`` (``None`` = CUDA, raising where there is none). An int8
     cache (``cache_dtype=torch.int8`` or ``REPRO_CACHE_QUANT=1``) is
-    refused: prompts go through ``extend``, which does not take one."""
+    refused: prompts go through ``extend``, which does not take one.
+    ``enc_out`` [max_batch, Le, d_model] (an encoder-decoder model's
+    ``encode`` output, on ``device``): decode attends slot i to row i, a
+    prompt chunk to row 0 (see the module docstring)."""
 
     def __init__(self, params, cfg: ModelConfig, max_batch: int = 8,
                  max_len: int = 512, impl: str = "kernel",
-                 cache_dtype=torch.float32, device=None):
+                 cache_dtype=torch.float32, device=None, enc_out=None):
         refuse_int8_serving("ServingEngine", cache_dtype)
         self.device = resolve_device(device)
         if max_len > cfg.max_seq:
             raise ValueError(f"max_len {max_len} exceeds {cfg.name}'s "
                              f"max_seq {cfg.max_seq} (its RoPE tables)")
+        if enc_out is not None and enc_out.shape[0] != max_batch:
+            raise ValueError(f"enc_out has {enc_out.shape[0]} rows for "
+                             f"{max_batch} slots")
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
         self.impl = check_impl(impl)
+        self.enc_out = enc_out
         self.cache = init_cache(cfg, max_batch, max_len, dtype=cache_dtype,
                                 device=self.device)
         self.free = list(range(max_batch))
@@ -97,19 +110,24 @@ class ServingEngine:
     def _decode(self, tokens, active):
         logits, self.cache = decode_step(self.params, self.cfg, tokens,
                                          self.cache, impl=self.impl,
-                                         active=active, device=self.device)
+                                         active=active, device=self.device,
+                                         enc_out=self.enc_out)
         return torch.argmax(logits, -1)
 
     def _extend(self, tokens, slot: int, length: int):
         """Run a chunk for one slot: the slot's cache row as views ->
         extend (K/V written through the views) -> the new ``len`` and, of a
         Mamba layer, the new state (a new tensor) back into the slot's
-        row. ``tokens`` is padded to its bucket."""
+        row. ``tokens`` is padded to its bucket. The chunk attends to row 0
+        of ``enc_out`` whatever the slot, as the reference's does (ROADMAP
+        R5 a)."""
         row = [{k: t[slot:slot + 1] for k, t in layer.items()}
                for layer in self.cache]
         logits, row = extend(self.params, self.cfg, tokens[None, :], row,
                              impl=self.impl, length=length,
-                             device=self.device)
+                             device=self.device,
+                             enc_out=None if self.enc_out is None
+                             else self.enc_out[:1])
         for layer, r in zip(self.cache, row):
             for key in ("len", "state"):
                 if key in r:

@@ -293,28 +293,11 @@ def test_params_from_jax_checks_the_tree():
     assert tuple(names["blocks.1.attn.wq.w"].shape) == (128, 4 * 32)
 
 
-@pytest.mark.parametrize("case", ["whisper-tiny"])
-def test_unported_families_raise(case):
-    """What the port does not run yet is refused with NotImplementedError,
-    naming the later slice: an encoder-decoder config (whisper-tiny)."""
-    j_cfg = j_archs()[case].reduced()
-    cfg = t_models.ModelConfig(**dataclasses.asdict(j_cfg))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_models.init_model(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_models.init_cache(cfg, 1, 8, device=CPU)
-
-
 def test_unknown_impl_and_later_entry_points_raise():
     _, _, cfg, params = _model("llama3.2-3b")
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="impl"):
         t_models.forward(params, cfg, toks, impl="xla", device=CPU)
-    from repro_torch.models import transformer
-
-    for name in ("encode", "encode_scanned"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            getattr(transformer, name)(params, cfg, toks)
 
 
 def test_tensors_must_lie_on_the_device_asked_for():

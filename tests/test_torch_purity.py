@@ -33,6 +33,10 @@ def test_main_path_imports_no_jax_and_no_reference():
         "import repro_torch.models.paged, repro_torch.fleet\n"
         "import repro_torch.configs.phi_3_vision_4_2b\n"
         "import repro_torch.tuning, repro_torch.models.stacked\n"
+        "import repro_torch.configs.whisper_tiny, repro_torch.dist\n"
+        "import repro_torch.dist.compression, repro_torch.training\n"
+        "import repro_torch.training.train_loop\n"
+        "import repro_torch.training.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(bad)\n"
