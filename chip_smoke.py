@@ -78,7 +78,15 @@ Phases — any failure raises and the script exits non-zero:
            mapping search (GA 16 x 6) through the fused kernel, every call
            on the shared-row route and none plain; the best action, its
            replicas, goodput per dollar and loads printed beside the JAX
-           package's CPU record in BENCH_serving.json;
+           package's CPU record in BENCH_serving.json; then the
+           population split over devices (``population_chunks``): the
+           canonical graph's evaluator with ``device=[cuda:0] * 3``
+           against one device for the dense, kernel and fused backends at
+           P 64, 512, 4,096 and 1,000 (ragged), ``evaluate_population``
+           and ``timing_matrix`` bit for bit, 3 launches a call instead
+           of 1, and one fused ``search_mapping`` (GA 512 x 16) in 3
+           chunks equal in encodings, scores and history to the unsplit
+           one, with 3x its launches; the walls side by side;
 4. serve   the serving path at the full width of llama3.2-3b (28 layers,
            seeded random float32 weights): ``ServingEngine`` serves 8
            requests (prompts of 64-512 tokens, 16 new tokens each) under
@@ -195,7 +203,15 @@ Phases — any failure raises and the script exits non-zero:
            batch 0's loss lower after the steps; at tests/test_training.
            py's lr 2e-3 (which overshoots at this size) finite and
            recorded; the step walls and ``torch.cuda.max_memory_
-           allocated``;
+           allocated``; then the training launcher
+           (``train_launcher``): ``launch.train.main`` at qwen1.5-0.5b's
+           full width, 4 steps with a checkpoint every 2, then a run that
+           resumes from step 2's checkpoint, its losses bit for bit the
+           first run's, no kernel launched; the step walls, peak memory
+           and straggler count; last, the dry run (``dryrun``, host only,
+           analytic): DRYRUN_CELLS on both production meshes on the meta
+           device, each cell's argument GiB per device beside an H100's
+           80 GB, its counted FLOPs and its roofline at the H100's rates;
 6. times   CUDA-event times of each kernel, its plain version and, for the
            attention kernels, ``torch.nn.functional.scaled_dot_product_
            attention`` on the same inputs, beside the least time the card
@@ -298,6 +314,10 @@ SSD_PARITY = [SSD_MAIN, (1, 96, 2, 16, 8), (2, 70, 3, 8, 16),
 SSD_TIMES = [SSD_MAIN, (2, 4096, 80, 64, 128)]
 MAMBA_ARCH, MAMBA_LAYERS = "mamba2-2.7b", 64
 MAIN_POP, MAIN_GENS = 512, 16
+# population chunks: CHUNKS chunks on one card against the unsplit path,
+# at each population (1,000 = 3 x 333 + 1: the last chunk padded), walls
+# per call over CHUNK_REPS calls, in turns (each call ends on the host)
+CHUNKS, CHUNK_POPS, CHUNK_REPS = 3, (64, 512, 4096, 1000), 3
 # the fleet frontier of benchmarks/bench_serving.py (fleet_frontier_record)
 # at the budgets of benchmarks/common.py (ga_config, fleet_budget): a
 # ShareGPT stream of 12 requests (warm fraction 0.25, at most 8 new tokens,
@@ -338,6 +358,22 @@ TRAIN_OPTS = {"gated": dict(lr=1e-5, warmup_steps=2, total_steps=12),
               "test_loss_decreases": dict(lr=2e-3, warmup_steps=2,
                                           total_steps=12)}
 TRAIN_CHECK_LAYERS, GRAD_REL = 2, 1e-4
+# the training launcher (the JAX package's launcher's default arch) at full
+# width: LAUNCH_STEPS steps with a checkpoint every LAUNCH_CKPT_EVERY, then
+# a resume from the checkpoint of step LAUNCH_CKPT_EVERY
+LAUNCH_ARCH, LAUNCH_STEPS, LAUNCH_CKPT_EVERY = "qwen1.5-0.5b", 4, 2
+# the dry run's cells (arch, shape), each on both production meshes: every
+# assigned arch's decode_32k (and long_500k where it has one), whisper-tiny's
+# prefill_32k and train_4k, and qwen1.5-0.5b's train_4k -- ~40 s of tracing
+# on the card's host; the whole set (64 cells, ~10 min) is
+# ``python -m repro_torch.launch.dryrun --all --both-meshes``
+DRYRUN_ARCHS = ("deepseek-v2-236b", "deepseek-moe-16b", "llama3.2-3b",
+                "qwen1.5-0.5b", "qwen2-1.5b", "glm4-9b", "whisper-tiny",
+                "jamba-v0.1-52b", "mamba2-2.7b", "phi-3-vision-4.2b")
+DRYRUN_CELLS = [(a, "decode_32k") for a in DRYRUN_ARCHS] + [
+    ("jamba-v0.1-52b", "long_500k"), ("mamba2-2.7b", "long_500k"),
+    ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "train_4k"),
+    ("qwen1.5-0.5b", "train_4k")]
 DD_EPS, DD_REL = 1e-3, 1e-3
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
@@ -1244,6 +1280,7 @@ def phase_main(scenario, device) -> dict:
           "launches_by_route": _me_routes()})
     runs["compare"] = _compare(scenario, results["fused"], device)
     runs["fleet_planned"] = _fleet_planned(device)
+    runs["population_chunks"] = _population_chunks(scenario, device)
     return runs
 
 
@@ -1495,6 +1532,125 @@ def _fleet_planned(device) -> dict:
            "seconds": pre_wall + sum(p["wall_s"] for p in points)}
     emit({"phase": "main", "run": "fleet_planned_summary",
           **{k: v for k, v in rec.items() if k != "points"}})
+    return rec
+
+
+def _same_arrays(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(x, y) and x.dtype == y.dtype
+               for x, y in zip(a, b))
+
+
+def _population_chunks(scenario, device) -> dict:
+    """The population split into CHUNKS chunks, all on this card
+    (``device=[cuda:0] * CHUNKS``), against the unsplit path, on the
+    canonical scenario's graph (B 3, rows 4, M 80): for the dense, kernel
+    and fused backends at each of CHUNK_POPS, ``evaluate_population`` and
+    ``timing_matrix`` equal bit for bit and CHUNKS launches a call instead
+    of 1 (counts set to 0 just before, read just after); then one
+    ``search_mapping`` (GA MAIN_POP x MAIN_GENS, fused) in CHUNKS chunks
+    equal in encodings, scores and GA history to the unsplit search, with
+    CHUNKS times its launches. The fused grid order is fixed for the
+    record, so no autotune probe launches; the walls of each pair side by
+    side."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import timing
+    from repro_torch.core.compass import search_mapping
+    from repro_torch.core.encoding import random_encoding
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.torch_evaluator import GroupPopulationEvaluator
+
+    kernels = {"dense": None, "kernel": "mapping_eval",
+               "fused": "mapping_eval_fused"}
+    chunked = [device] * CHUNKS
+    base = canonical_evaluator(scenario, device)
+    g = base.graphs[0]
+    rng = np.random.default_rng(28)
+    pops = {n: [random_encoding(rng, g.rows, g.n_cols, base.hw.n_chiplets)
+                for _ in range(n)] for n in CHUNK_POPS}
+    os.environ["REPRO_FUSED_GRID_ORDER"] = "batch_major"
+    try:
+        evals = []
+        for backend, kernel in kernels.items():
+            one, split = (GroupPopulationEvaluator(
+                base.graphs, base.tables, base.hw, backend=backend,
+                device=dev) for dev in (device, chunked))
+            for n, encs in pops.items():
+                a, b = one.evaluate_population(encs), \
+                    split.evaluate_population(encs)
+                ta, tb = one.timing_matrix(encs), split.timing_matrix(encs)
+                fields = ("op_start_s", "op_end_s", "chip_free_s")
+                same = _same_arrays(a, b) and _same_arrays(
+                    [getattr(ta, f) for f in fields],
+                    [getattr(tb, f) for f in fields])
+                check(same, f"population chunks: {backend} at P {n} differ "
+                            "from the unsplit path")
+                counts = {}
+                for label, ev in (("one", one), ("chunked", split)):
+                    _, _, launches, _ = _counted(
+                        lambda ev=ev: ev.evaluate_population(encs))
+                    counts[label] = launches.get(kernel, 0) if kernel \
+                        else sum(launches.values())
+                check(counts == ({"one": 1, "chunked": CHUNKS} if kernel
+                                 else {"one": 0, "chunked": 0}),
+                      f"population chunks: {backend} at P {n} launched "
+                      f"{counts}")
+                walls = _in_turns(
+                    {"one": lambda: one.evaluate_population(encs),
+                     "chunked": lambda: split.evaluate_population(encs)},
+                    CHUNK_REPS)
+                evals.append({"backend": backend, "population": n,
+                              "bitwise": same, "launches": counts,
+                              "ms_per_call": walls})
+
+        batches = scenario.rollout().batches
+        hw = base.hw
+        mbs = [scenario.micro_batch(hw, b) for b in batches]
+        ga = GAConfig(population=MAIN_POP, generations=MAIN_GENS, seed=0)
+        search = {}
+        for label, dev in (("one", device), ("chunked", chunked)):
+            timing.clear_timing_backend_stats()       # counts to 0 just before
+            t0 = time.perf_counter()
+            out = search_mapping(scenario.spec, batches, hw, mbs, ga,
+                                 n_blocks=scenario.n_blocks,
+                                 timing_backend="fused", device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = timing.timing_backend_stats()     # read just after
+            search[label] = (out, wall, stats)
+        (o1, w1, s1), (o2, w2, s2) = search["one"], search["chunked"]
+        same = (o1.score == o2.score and o1.latency_s == o2.latency_s
+                and o1.energy_j == o2.energy_j
+                and [r.history for r in o1.ga_results]
+                == [r.history for r in o2.ga_results]
+                and all(np.array_equal(o1.encodings[k].segmentation,
+                                       o2.encodings[k].segmentation)
+                        and np.array_equal(o1.encodings[k].layer_to_chip,
+                                           o2.encodings[k].layer_to_chip)
+                        for k in o1.encodings))
+        check(same, "population chunks: the chunked search_mapping differs")
+        n1 = s1["launches"]["mapping_eval_fused"]
+        n2 = s2["launches"]["mapping_eval_fused"]
+        calls = s1["dispatches"]["mapping_eval_fused:cuda"]
+        check(n1 == calls and n2 == CHUNKS * n1,
+              f"population chunks: search launches {n1} / {n2} for {calls} "
+              "evaluator calls")
+    finally:
+        os.environ.pop("REPRO_FUSED_GRID_ORDER", None)
+    rec = {"phase": "main", "record": "population_chunks", "chunks": CHUNKS,
+           "devices": [str(device)] * CHUNKS, "evaluator": evals,
+           "search": {"population": MAIN_POP, "generations": MAIN_GENS,
+                      "score": o1.score, "equal": same,
+                      "evaluator_calls": calls,
+                      "launches": {"one": n1, "chunked": n2},
+                      "launches_per_call": {"one": n1 / calls,
+                                            "chunked": n2 / calls},
+                      "wall_s": {"one": w1, "chunked": w2}},
+           "card": card_line()}
+    emit(rec)
     return rec
 
 
@@ -3483,8 +3639,110 @@ def phase_train(device) -> dict:
            "losses": {k: r["losses"] for k, r in runs.items()},
            "phase_s": time.perf_counter() - t_phase}
     emit(rec)
+    launcher = _train_launcher(device)
+    dry = _dryrun_record()
     return {"steps": runs, "float64_gradients": grads,
-            "directional_derivative": slope}
+            "directional_derivative": slope, "train_launcher": launcher,
+            "dryrun": dry}
+
+
+def _train_launcher(device) -> dict:
+    """``launch.train.main`` at LAUNCH_ARCH's full width on its default
+    device: LAUNCH_STEPS steps with ``--ckpt-every LAUNCH_CKPT_EVERY`` into
+    a temporary directory, then a second run from a directory that holds
+    only step LAUNCH_CKPT_EVERY's checkpoint, which resumes there: its
+    losses equal the first run's bit for bit. No kernel launches (eager
+    training, counted); the step walls, ``max_memory_allocated`` and the
+    straggler count of each run."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", LAUNCH_ARCH, "--steps", str(LAUNCH_STEPS),
+            "--ckpt-every", str(LAUNCH_CKPT_EVERY)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    runs = {}
+    try:
+        first = os.path.join(tmp, "first")
+        resumed = os.path.join(tmp, "resumed")
+        for label, where in (("first", first), ("resumed", resumed)):
+            if label == "resumed":
+                os.makedirs(resumed)
+                name = f"step_{LAUNCH_CKPT_EVERY:08d}.npz"
+                for suffix in ("", ".json"):
+                    shutil.copy(os.path.join(first, name + suffix), resumed)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            out, wall, launches, disp = _counted(
+                lambda where=where: launch_train.main(argv + ["--ckpt-dir",
+                                                              where]))
+            _only(launches, disp, {}, f"the training launcher ({label})")
+            runs[label] = dict(
+                out, wall_s=wall,
+                max_memory_allocated=torch.cuda.max_memory_allocated(device))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = runs["first"], runs["resumed"]
+    after = range(LAUNCH_CKPT_EVERY, LAUNCH_STEPS)
+    same = b["start"] == LAUNCH_CKPT_EVERY and list(b["losses"]) == \
+        list(after) and all(b["losses"][s] == a["losses"][s] for s in after)
+    check(all(math.isfinite(x) for x in a["losses"].values()),
+          f"launcher losses {a['losses']}")
+    check(same, f"the resumed launcher's losses {b['losses']} are not the "
+                f"first run's {a['losses']}")
+    rec = {"phase": "train", "run": "train_launcher", "arch": LAUNCH_ARCH,
+           "argv": argv, "resumed_equal": same,
+           **{label: {"start": r["start"],
+                      "losses": {str(k): v for k, v in r["losses"].items()},
+                      "step_s": {str(k): v for k, v in r["step_s"].items()},
+                      "straggler_steps": r["straggler_steps"],
+                      "wall_s": r["wall_s"],
+                      "max_memory_allocated": r["max_memory_allocated"]}
+              for label, r in runs.items()},
+           "card": card_line()}
+    emit(rec)
+    return rec
+
+
+def _dryrun_record() -> dict:
+    """The port's dry run (host only, no card work: meta tensors) over
+    DRYRUN_CELLS on both production meshes, each cell with its roofline
+    on the H100's rates. Analytic, not measured: the argument GiB per
+    device beside an H100's 80 GB, the counted FLOPs, ``dominant`` and
+    ``t_comp`` / ``t_mem``."""
+    from repro_torch.configs import SHAPES, get
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    cells = []
+    for arch_id, shape in DRYRUN_CELLS:
+        for multi_pod in (False, True):
+            r = roofline.analyse(dryrun.run_cell(
+                get(arch_id), SHAPES[shape], multi_pod=multi_pod,
+                verbose=False))
+            cells.append({
+                "arch": arch_id, "shape": shape, "mesh": r["mesh"],
+                "argument_gib_per_device":
+                    r["argument_bytes_per_device"] / 2**30,
+                "fits_h100": r["argument_bytes_per_device"]
+                    < dryrun.H100_BYTES,
+                "counted_flops_per_device": r["flops_per_device"],
+                "analytic_flops_per_device": r["flops_analytic_per_device"],
+                "t_comp_ms": 1e3 * r["t_comp_s"],
+                "t_mem_ms": 1e3 * r["t_mem_s"],
+                "t_coll_ms": None if r["t_coll_s"] is None
+                else 1e3 * r["t_coll_s"],
+                "dominant": r["dominant"],
+                "trace_s": r["trace_s"]})
+    rec = {"phase": "train", "run": "dryrun", "analytic": True,
+           "cells": cells, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch

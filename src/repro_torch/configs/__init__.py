@@ -11,6 +11,14 @@ from .base import (  # noqa: F401
 
 _LOADED = False
 
+# the architectures the dry run and the roofline cover (the JAX package's
+# ``configs.ASSIGNED_ARCHS``)
+ASSIGNED_ARCHS = (
+    "deepseek-v2-236b", "deepseek-moe-16b", "llama3.2-3b", "qwen1.5-0.5b",
+    "qwen2-1.5b", "glm4-9b", "whisper-tiny", "jamba-v0.1-52b",
+    "mamba2-2.7b", "phi-3-vision-4.2b",
+)
+
 
 def _load_all():
     global _LOADED

@@ -21,10 +21,14 @@ Batches sharing an execution-graph structure (same rows x M) share one
 mapping — the mapping must serve the *distribution*, not a single batch
 (this is what Gemini's fixed-length assumption cannot do).
 
-Every entry point runs on one torch device: ``device=None`` means CUDA and
-raises when CUDA is missing; tests pass ``device="cpu"``. The population
-evaluators are built from :mod:`repro_torch.core.torch_evaluator`; a
-failure to build one raises (there is no slower path to fall back to).
+Every entry point takes a ``device`` knob
+(:func:`~repro_torch.core.timing.resolve_devices`): ``None`` means one
+CUDA device and raises when CUDA is missing; several devices (an int or a
+list) split each GA population into chunks, one per device, with results
+equal bit for bit to one device's; tests pass ``device="cpu"`` (or a list
+of them). The population evaluators are built from
+:mod:`repro_torch.core.torch_evaluator`; a failure to build one raises
+(there is no slower path to fall back to).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from .timing import (
     fold_request_timings,
     get_graph_and_tables,
     get_timing_backend,
-    resolve_device,
+    resolve_devices,
     splice_latencies,
 )
 from .torch_evaluator import GroupPopulationEvaluator, JointStreamEvaluator
@@ -172,7 +176,7 @@ class Scenario:
     objective: Objective | str | None = None  # default for explore()
     timing_backend: "TimingBackend | str | None" = None  # oracle|dense|kernel|fused
     co_search: "CoSearchConfig | str | None" = None  # one_sweep|fixed_point|joint
-    device: object = None                     # torch device; None = CUDA
+    device: object = None                     # devices; None = one card
     max_slots: int | None = None              # engine slots for the rollout
     max_stream_iters: int = 128               # rollout horizon (iterations)
     _rollout: StreamRollout | None = field(
@@ -288,8 +292,11 @@ def search_mapping(
     co_search: "CoSearchConfig | str | None" = None,
     device: object = None,
 ) -> MappingSearchOutput:
-    """GA mapping search shared across structurally-identical batches, on
-    one torch ``device`` (``None`` = CUDA, raising when it is missing).
+    """GA mapping search shared across structurally-identical batches. The
+    population evaluators split each generation over ``device``
+    (:func:`~repro_torch.core.timing.resolve_devices`; ``None`` = one
+    CUDA device, raising when CUDA is missing); the fold
+    runs on the first device.
 
     ``objective`` must be MC-free (``uses_mc=False``): monetary cost is
     constant for a fixed hardware config, so an MC-bearing objective here
@@ -314,7 +321,8 @@ def search_mapping(
     rebuilds neither, and the device-resident stacked table buffers are
     reused across generations and calls.
     """
-    dev = resolve_device(device)
+    devs = resolve_devices(device)
+    dev = devs[0]
     obj = get_objective(objective)
     if obj.uses_mc:
         raise ValueError(
@@ -355,7 +363,7 @@ def search_mapping(
     group_evals = {
         key: _make_population_eval([graphs[i] for i in idxs],
                                    [tables[i] for i in idxs], hw,
-                                   timing_backend, dev)
+                                   timing_backend, devs)
         for key, idxs in groups.items()
     }
 
@@ -649,7 +657,8 @@ def _make_population_eval(graphs, tables, hw, timing_backend, device):
     ``timing_backend`` selects the pass-B engine: ``oracle`` routes to the
     pure-numpy evaluator (an explicit choice); every other backend runs the
     torch group evaluator on ``device`` — one device call per GA generation
-    for ALL batches of the group. Building it raises on failure."""
+    and device for ALL batches of the group, the population split over the
+    devices. Building it raises on failure."""
     backend = get_timing_backend(timing_backend)
     if not isinstance(backend, OracleTimingBackend):
         return GroupPopulationEvaluator(graphs, tables, hw, backend=backend,
@@ -759,12 +768,14 @@ def explore(
     ``bo_batch`` batches the hardware axis: K candidates are proposed per
     BO round (``bo.propose_next_batch``). On a host with several CUDA
     devices and an unpinned CUDA ``device``, a batch is priced
-    concurrently — one mapping search per hardware point, round-robin over
-    the cards, up to ``bo_workers`` threads (default: min(batch, device
-    count)); on one device the points are priced serially. The total
-    evaluation budget is unchanged. ``bo_batch=1`` is the serial loop.
+    concurrently — one mapping search per hardware point, pinned to one
+    card, round-robin over the cards, up to ``bo_workers`` threads
+    (default: min(batch, device count)); under any other ``device`` the
+    points are priced serially, each search split over its devices. The
+    total evaluation budget is unchanged. ``bo_batch=1`` is the serial loop
+    (each search split over the devices).
     """
-    dev = resolve_device(scenario.device if device is None else device)
+    devs = resolve_devices(scenario.device if device is None else device)
     cache: dict[tuple, tuple[float, MappingSearchOutput]] = {}
 
     def price(point: HardwarePoint, on) -> tuple[float, MappingSearchOutput]:
@@ -774,7 +785,7 @@ def explore(
     def obj(point: HardwarePoint) -> float:
         key = point.key()
         if key not in cache:
-            cache[key] = price(point, dev)
+            cache[key] = price(point, devs)
         return cache[key][0]
 
     evaluate_batch = None
@@ -784,8 +795,10 @@ def explore(
             # a seen key, but init sampling may
             todo = {p.key(): p for p in points if p.key() not in cache}
             pts = list(todo.values())
-            n_cards = torch.cuda.device_count() \
-                if dev.type == "cuda" and dev.index is None else 1
+            # an unpinned CUDA knob prices each point on a card of its own;
+            # any other knob prices the points one after another on it
+            unpinned = devs == [torch.device("cuda")]
+            n_cards = torch.cuda.device_count() if unpinned else 1
             if len(pts) > 1 and n_cards > 1:
                 from concurrent.futures import ThreadPoolExecutor
 
@@ -800,7 +813,7 @@ def explore(
                         cache[p.key()] = f.result()
             else:
                 for p in pts:
-                    cache[p.key()] = price(p, dev)
+                    cache[p.key()] = price(p, devs)
             return [cache[p.key()][0] for p in points]
 
     bo = bo_search(obj, scenario.target_tops, iters=bo_iters,

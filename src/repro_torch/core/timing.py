@@ -93,6 +93,50 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _cuda_count() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _one_device(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= _cuda_count():
+        raise ValueError(f"device {dev} but {_cuda_count()} CUDA devices "
+                         "are available")
+    return dev
+
+
+def resolve_devices(device=None) -> "list[torch.device]":
+    """A ``device`` knob that may name several devices, as a list of them
+    (the JAX package's ``resolve_mesh``); the population evaluators split
+    a population over them:
+
+    * ``None`` or an unpinned ``"cuda"``: one CUDA device, the current
+      one. The reference's ``devices=None`` means every local device; the
+      split over several cards is opt-in here, since on four H100s it cost
+      1.3-4.2x the one-card call and 1.43x the one-card search (chunks are
+      dispatched one after another from one thread, and the calls are
+      host-bound; PERF.md, PR 28);
+    * an int N: the first N CUDA devices;
+    * a list or tuple: exactly those devices, in order; a device may
+      repeat (chunks evaluated one after another on one device);
+    * any other device (``"cuda:1"``, ``"cpu"``): that device alone.
+
+    One device takes the unsplit path. No device, or more than the CUDA
+    devices present, raises ``ValueError``; an unpinned CUDA device
+    without CUDA raises ``RuntimeError``, as :func:`resolve_device`."""
+    if isinstance(device, int) and not isinstance(device, bool):
+        if not 1 <= device <= _cuda_count():
+            raise ValueError(f"device={device} but {_cuda_count()} CUDA "
+                             "devices are available")
+        return [torch.device("cuda", i) for i in range(device)]
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("device= must name at least one device")
+        return [_one_device(d) for d in device]
+    return [_one_device(device)]
+
+
 # --------------------------------------------------------------------------
 # Dispatch observability (one registry, shared with kernels.ops)
 # --------------------------------------------------------------------------

@@ -29,7 +29,14 @@ batch axis — a whole GA generation is ONE call) share this body. Scheduled
 orders come from ``encoding.ScheduledOrderCache``; per-batch cost tables are
 uploaded once per distinct table content (module-level keyed cache) and the
 device buffers persist across GA generations and ``search_mapping`` calls.
-Everything runs on ONE device (``device=None`` = CUDA).
+
+``device`` names where the population is evaluated
+(:func:`~repro_torch.core.timing.resolve_devices`):
+one device runs the whole population in one call; several devices split
+it into contiguous chunks, one per device, padded as the JAX package's
+``pad_population`` pads its sharded population. Every individual is
+evaluated on its own, so the chunked results equal the one-device results
+bit for bit. ``device=None`` means one CUDA device.
 """
 from __future__ import annotations
 
@@ -64,7 +71,7 @@ from .timing import (
     get_timing_backend,
     padded_predecessor_columns,
     record_backend_dispatch,
-    resolve_device,
+    resolve_devices,
 )
 from .workload import ExecutionGraph
 
@@ -369,6 +376,10 @@ def clear_device_table_cache() -> None:
             _DEVICE_CACHE_STATS[k] = 0
 
 
+def _long(a: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(a, device=device).long()
+
+
 def _resolve_backend(backend) -> "tuple[str, str | None]":
     """(path name, grid order) for the population passes. The oracle
     backend has no device path — compass routes it to the numpy
@@ -387,6 +398,35 @@ def _resolve_backend(backend) -> "tuple[str, str | None]":
     raise ValueError(f"timing backend {be!r} has no population path")
 
 
+# --------------------------------------------------------------------------
+# Population chunks over devices
+#
+# Every per-individual quantity is computed on its own, so splitting the
+# population axis is pure data parallelism: each device runs the SAME
+# passes on its contiguous chunk, and the gathered outputs equal the
+# one-device outputs bit for bit. This is the JAX package's population
+# sharding (``resolve_mesh``, ``pad_population``, ``_sharded_pass``) with a
+# list of torch devices (``timing.resolve_devices``) in place of a 1-D
+# mesh.
+# --------------------------------------------------------------------------
+
+
+def pad_population(orders: np.ndarray, l2c: np.ndarray,
+                   multiple: int) -> "tuple[np.ndarray, np.ndarray, int]":
+    """Pad the population axis (axis 0 of both arrays) up to a multiple of
+    the device count by repeating the last individual. Individuals are
+    evaluated independently, so the padding is removed by slicing every
+    output back to the true population size before anything reads it.
+    Returns ``(orders, l2c, true_population)``."""
+    p = orders.shape[0]
+    pad = (-p) % multiple
+    if pad:
+        orders = np.concatenate(
+            [orders, np.repeat(orders[-1:], pad, axis=0)])
+        l2c = np.concatenate([l2c, np.repeat(l2c[-1:], pad, axis=0)])
+    return orders, l2c, p
+
+
 @dataclass
 class GroupPopulationEvaluator:
     """Evaluates a GA population against ALL structurally-identical batches
@@ -394,7 +434,13 @@ class GroupPopulationEvaluator:
     per-batch cost tables live on the device in a persistent keyed cache,
     while the mapping-structural pass runs once per individual. Returns
     (B, P) latency/energy; ``timing_matrix`` exposes the full per-op
-    (B, P, T) matrix the SLO objectives fold. ``device=None`` = CUDA."""
+    (B, P, T) matrix the SLO objectives fold.
+
+    ``device`` (:func:`~.timing.resolve_devices`; ``None`` = one CUDA
+    device; an int or a list, several) splits the population axis over several devices: the batch
+    axis stays whole on each, with its own copy of the statics and the
+    stacked tables (a repeated device shares one copy), and the outputs
+    are gathered in population order onto the first device."""
 
     graphs: "list[ExecutionGraph]"
     tables: "list[CostTables]"
@@ -412,11 +458,16 @@ class GroupPopulationEvaluator:
         assert all([(m.pred_lo, m.pred_hi) for m in g.layers] == preds0
                    for g in self.graphs), \
             "group batches must share predecessor intervals"
-        self._device = resolve_device(self.device)
+        self._devices = resolve_devices(self.device)
+        self._device = self._devices[0]
         self._backend, self._grid_order = _resolve_backend(self.backend)
-        self._static = dict(
-            _shared_statics(g0, self.hw, self._device),
-            **_stacked_device_tables(tuple(self.tables), self._device))
+        self._statics = {}
+        for dev in self._devices:
+            if dev not in self._statics:
+                self._statics[dev] = dict(
+                    _shared_statics(g0, self.hw, dev),
+                    **_stacked_device_tables(tuple(self.tables), dev))
+        self._static = self._statics[self._device]
         self._n_chips = self.hw.n_chiplets
         self._order_cache = ScheduledOrderCache(g0.rows, g0.n_cols)
         self._scales = np.array([g.scale for g in self.graphs])
@@ -437,16 +488,38 @@ class GroupPopulationEvaluator:
             # dependency structure, so graphs[0] covers them all
             assert_population_legal(pop, self._n_chips,
                                     graph=self.graphs[0])
-        return _grouped_population_pass(
-            *self._device_population(pop), self._n_chips, self._static,
-            backend=self._backend, full=full, grid_order=self._grid_order)
 
-    def _device_population(self, pop):
-        """(order_rc (P, T, 2), l2c (P, rows, M)) int64 on the device."""
-        orders = self._order_cache.orders(pop.segmentation)
-        as_dev = lambda a: torch.as_tensor(  # noqa: E731
-            np.asarray(a), device=self._device).long()
-        return as_dev(orders), as_dev(pop.layer_to_chip)
+        def body(order_rc, l2c, st):
+            return _grouped_population_pass(
+                order_rc, l2c, self._n_chips, st, backend=self._backend,
+                full=full, grid_order=self._grid_order)
+
+        return self._split(pop, body, (1,) * (5 if full else 2))
+
+    def _split(self, pop, body, axes):
+        """``body(order_rc, l2c, statics)`` over the population: in one
+        call on one device, else once per device on its contiguous chunk
+        of the padded population. Every chunk's inputs are uploaded and
+        every chunk's pass issued before any output is read, so chunks on
+        different cards overlap; output k, whose population axis is
+        ``axes[k]``, is gathered onto the first device and sliced back to
+        the true population."""
+        orders = np.asarray(self._order_cache.orders(pop.segmentation))
+        l2c = np.asarray(pop.layer_to_chip)
+        if len(self._devices) == 1:
+            return body(_long(orders, self._device), _long(l2c, self._device),
+                        self._static)
+        orders, l2c, p0 = pad_population(orders, l2c, len(self._devices))
+        n = orders.shape[0] // len(self._devices)
+        ins = [(_long(orders[i * n:(i + 1) * n], dev),
+                _long(l2c[i * n:(i + 1) * n], dev))
+               for i, dev in enumerate(self._devices)]
+        outs = [body(o, lc, self._statics[dev])
+                for (o, lc), dev in zip(ins, self._devices)]
+        return tuple(
+            torch.cat([out[k].to(self._device) for out in outs],
+                      dim=ax).narrow(ax, 0, p0)
+            for k, ax in enumerate(axes))
 
     def evaluate_population(self, population
                             ) -> tuple[np.ndarray, np.ndarray]:
@@ -472,18 +545,23 @@ class GroupPopulationEvaluator:
         ``t_proc`` (B, P, L) un-gathered cost rows, ``sched_idx``,
         ``chip`` (P, T) and ``ppos`` (P, T, W) — the kernels' inputs at
         the search's own shapes."""
-        struct, tproc_flat, _ = _front_passes(
-            *self._device_population(as_stacked(population)), self._n_chips,
-            self._static)
-        return dict(t_proc=tproc_flat, sched_idx=struct["sched_idx"],
-                    chip=struct["chip_seq"], ppos=struct["ppos"],
-                    n_chips=self._n_chips)
+        def body(order_rc, l2c, st):
+            struct, tproc_flat, _ = _front_passes(order_rc, l2c,
+                                                  self._n_chips, st)
+            return (tproc_flat, struct["sched_idx"], struct["chip_seq"],
+                    struct["ppos"])
+
+        t_proc, sched_idx, chip, ppos = self._split(
+            as_stacked(population), body, (1, 0, 0, 0))
+        return dict(t_proc=t_proc, sched_idx=sched_idx, chip=chip,
+                    ppos=ppos, n_chips=self._n_chips)
 
 
 @dataclass
 class PopulationEvaluator:
     """Evaluates GA populations against one graph; matches the numpy
-    oracle. The single-batch case of :class:`GroupPopulationEvaluator`."""
+    oracle. The single-batch case of :class:`GroupPopulationEvaluator`,
+    with its ``device`` knob."""
 
     graph: ExecutionGraph
     tables: CostTables

@@ -1,3 +1,4 @@
 """Distributed-execution utilities of the port: gradient compression with
-error feedback (:mod:`.compression`). The sharding rules and the elastic
-mesh helpers of the JAX package's ``dist`` come with the launch slice."""
+error feedback (:mod:`.compression`), the sharding rules of the production
+meshes (:mod:`.sharding`) and the elastic-mesh helpers (:mod:`.elastic`),
+as in the JAX package's ``dist``. Importing it touches no device."""

@@ -53,6 +53,8 @@ class TokenStream:
 
 
 def shard_batch(batch: np.ndarray, device) -> torch.Tensor:
-    """A host batch as a tensor on ``device`` (a mesh placement waits for
-    the port's sharding rules)."""
+    """A host batch placed as the mesh places tokens
+    (:func:`repro_torch.dist.sharding.token_sharding`): the port's launcher
+    runs on the (1, 1) mesh (ROADMAP R6 a), whose placement is the whole
+    batch on its one ``device``."""
     return torch.as_tensor(batch, device=device)

@@ -458,6 +458,9 @@ def test_cache_from_jax_carries_the_int8_leaves(monkeypatch):
 READERS = {
     "cache_quant": ("REPRO_CACHE_QUANT", "1"),
     "moe_capacity_factor": ("REPRO_MOE_CAP", "0.5"),
+    "train_microbatches": ("REPRO_TRAIN_MICROBATCH", "4"),
+    "grad_accum_dtype": ("REPRO_GRAD_ACCUM", "bfloat16"),
+    "train_compress": ("REPRO_TRAIN_COMPRESS", "1"),
 }
 
 

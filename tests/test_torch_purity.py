@@ -37,6 +37,9 @@ def test_main_path_imports_no_jax_and_no_reference():
         "import repro_torch.dist.compression, repro_torch.training\n"
         "import repro_torch.training.train_loop\n"
         "import repro_torch.training.checkpoint\n"
+        "import repro_torch.dist.sharding, repro_torch.dist.elastic\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.train\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
         "print(bad)\n"
@@ -86,6 +89,7 @@ def test_default_device_is_cuda_and_never_falls_back():
                                 stream=RequestStream.fixed_batches(batches))
     from repro_torch.configs import get
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import init_cache, init_model, prefill
     from repro_torch.serving.engine import ServingEngine
 
@@ -106,6 +110,7 @@ def test_default_device_is_cuda_and_never_falls_back():
         lambda: prefill(m_params, m_cfg, tokens, m_cache),
         lambda: serve.main([]),
         lambda: serve.main(["--arch", "mamba2-2.7b"]),
+        lambda: launch_train.main(["--reduced", "--steps", "1"]),
         lambda: compass.search_mapping(spec, batches, hw, [2], n_blocks=1),
         lambda: compass.explore(scenario, bo_iters=1, bo_init=1),
         lambda: torch_evaluator.PopulationEvaluator(
