@@ -142,7 +142,9 @@ Phases — any failure raises and the script exits non-zero:
            bfloat16 flash kernel (28 launches) and eagerly, the kernel
            held to its plain version within 2e-2 of the largest value on
            each layer's own q/k/v, the end-to-end kernel-vs-eager logit
-           gap and argmax agreement printed, the prefill under
+           gap and argmax agreement printed, its norms float32 (as the
+           reference builds them) and its logits bit for bit those of a
+           copy with the norms cast to bfloat16, the prefill under
            ``torch.profiler``; one orca engine run and one profiled.
            Then the same as for llama at the full width of mamba2-2.7b
            (64 layers,
@@ -212,7 +214,33 @@ Phases — any failure raises and the script exits non-zero:
            analytic): DRYRUN_CELLS on both production meshes on the meta
            device, each cell's argument GiB per device beside an H100's
            80 GB, its counted FLOPs and its roofline at the H100's rates;
-6. times   CUDA-event times of each kernel, its plain version and, for the
+6. examples the four examples' twins (``examples/*_torch.py``), each
+           ``main`` run in-process at its JAX original's default arguments
+           with every launch counter set to 0 just before it and read just
+           after: quickstart (the search through ``mapping_eval_fused``),
+           serve_llm (reduced qwen1.5-0.5b, engine and ``--service``,
+           every decode iteration through ``decode_attention``), serve_llm
+           ``--arch whisper-tiny`` (engine only; its ``encode`` and
+           cross-attention through float32 ``flash_attention``),
+           codesign_serving (search and engine) and train_small (demo-100m,
+           137.8 M parameters, eager): each kernel on a twin's path
+           launched, none of its dispatches plain, the attention kernels
+           exactly as often as the run's own iteration stats say (decode
+           once per layer of each iteration that decoded; flash once per
+           encoder layer for ``encode`` and once per decoder layer of each
+           such iteration and each prompt chunk); the first TWIN_HELD
+           calls at each distinct shape a twin gives a kernel kept and held
+           against the plain version on the same arguments after the run
+           (mapping eval bit for bit, attention within ATTN_TOLS), and
+           quickstart's result held against its ``--device cpu`` run (the
+           best hardware exactly, its metrics within 1e-3). train_small runs
+           TRAIN_SMALL_STEPS steps into a temporary directory (the
+           example's checkpoint every 25 steps lands on step 25), then
+           once more in the same directory, resuming from that checkpoint:
+           the resumed steps' losses bit for bit the first run's. Last,
+           ``python3 examples/quickstart_torch.py`` as a process of its
+           own;
+7. times   CUDA-event times of each kernel, its plain version and, for the
            attention kernels, ``torch.nn.functional.scaled_dot_product_
            attention`` on the same inputs, beside the least time the card
            could take for the same bytes (3.35 TB/s) or operations
@@ -249,7 +277,7 @@ Phases — any failure raises and the script exits non-zero:
            shared bytes, blocks per SM), in turns with the library call
            where it takes the types, beside the bound of the latent read
            once;
-7. profile one hardware point's mapping search (the search path's GA)
+8. profile one hardware point's mapping search (the search path's GA)
            under ``torch.profiler``: wall, device busy time and share, and
            the kernels that take the device time.
 
@@ -271,7 +299,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "parity", "main", "serve", "train", "times", "profile")
+PHASES = ("build", "parity", "main", "serve", "train", "examples", "times",
+          "profile")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16 tensor cores, dense
@@ -375,6 +404,26 @@ DRYRUN_CELLS = [(a, "decode_32k") for a in DRYRUN_ARCHS] + [
     ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "train_4k"),
     ("qwen1.5-0.5b", "train_4k")]
 DD_EPS, DD_REL = 1e-3, 1e-3
+# the examples' twins (examples/*_torch.py): each kernel its twin launches
+# on the card, and train_small's steps (its checkpoint every 25 steps lands
+# on step 25, and the resumed run repeats the steps after it)
+EXAMPLE_KERNELS = {
+    "quickstart": ("mapping_eval_fused",),
+    "serve_llm": ("decode_attention",),
+    "serve_llm_service": ("decode_attention",),
+    "serve_llm_whisper": ("decode_attention", "flash_attention"),
+    "codesign_serving": ("mapping_eval_fused", "decode_attention"),
+    "train_small": (),
+}
+# the model each serving twin serves (reduced), and the calls per kernel,
+# wrapper and distinct argument shapes that are kept and held against the
+# plain version after the twin's run
+EXAMPLE_ARCHS = {"serve_llm": "qwen1.5-0.5b",
+                 "serve_llm_service": "qwen1.5-0.5b",
+                 "serve_llm_whisper": "whisper-tiny",
+                 "codesign_serving": "qwen2-1.5b"}
+TWIN_HELD = 2
+TRAIN_SMALL_STEPS = 27
 SERVE_ARCH, SERVE_LAYERS = "llama3.2-3b", 28
 SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 1024
 SERVE_CHUNK = 64
@@ -445,6 +494,16 @@ DECODE_MLA_TIMES = [DECODE_MLA, (8, 128, 1, 8192, 576, "shared")]
 DECODE_PARITY += DECODE_MLA_TIMES + [
     (8, 128, 1, 1024, 576, "shared", "edges"), (2, 6, 1, 96, 576, "shared"),
     (2, 16, 2, 100, 576, "shared"), (2, 4, 1, 96, 48, "shared")]
+# the examples' twins (reduced models, D 32): serve_llm's engine at 4 slots
+# over 128 rows (Hq = Hkv = 4; its service at buckets 1, 2 and 4),
+# codesign's at 8 slots over 96 rows (Hkv 2); whisper-tiny's encoder over
+# 4 x 16 frames, its cross-attention from 4 decode lanes and from one
+# prompt chunk of 2 to 64 rows (not causal, Lk 16)
+DECODE_PARITY += [(4, 4, 4, 128, 32), (4, 4, 4, 128, 32, "edges"),
+                  (2, 4, 4, 128, 32), (1, 4, 4, 128, 32), (8, 4, 2, 96, 32),
+                  (8, 4, 2, 96, 32, "edges")]
+FLASH_PARITY += [(4, 4, 4, 16, 16, 32, False), (4, 4, 4, 1, 16, 32, False),
+                 (1, 4, 4, 2, 16, 32, False), (1, 4, 4, 64, 16, 32, False)]
 DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128), DECODE_PHI,
                 DECODE_WHISPER]
 FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
@@ -796,6 +855,7 @@ def phase_build() -> dict:
     rec = {"phase": "build", "sources": [f"{CSRC}/{s}" for s in sources],
            "libraries": [lib.name for lib in libs],
            "compiled_now": [not found[s] for s in sources],
+           # repro-lint: disable=RT006 -- host work: nvcc builds, no device work
            "seconds": time.perf_counter() - t0}
     emit(rec)
     return rec
@@ -1370,6 +1430,7 @@ def _compare(scenario, compass, device) -> dict:
     t0 = time.perf_counter()
     gem = gemini_style_search(scenario, sa_iters=60, grid_subsample=4)
     rec["gemini"] = row(gem.latency_s, gem.energy_j, gem.mc_total,
+                        # repro-lint: disable=RT006 -- host work: the numpy oracle
                         gem.score, time.perf_counter() - t0)
     timing.clear_timing_backend_stats()            # counts to 0 just before
     t0 = time.perf_counter()
@@ -2638,6 +2699,7 @@ def _service_checks(params, cfg, arch: str, engine: dict, device,
         del svc
         emit(rec)
         out["wall"] = rec
+    # repro-lint: disable=RT006 -- every serve read its tokens back before the stop
     out["seconds"] = time.perf_counter() - t_start
     emit({"phase": "serve", "run": "service_seconds", "arch": arch,
           "seconds": out["seconds"]})
@@ -2808,6 +2870,37 @@ def _bf16_layer_check(params, cfg, toks, device) -> dict:
     return {"max_rel_layer_err": worst, "tol_of_largest": tol}
 
 
+def _bf16_norms_check(params, cfg, toks, logits, device) -> dict:
+    """The bfloat16 model's block and final norms are float32, as the
+    reference builds them, and at init (gain 1) its ``prefill`` logits
+    equal bit for bit those of a copy with the norms cast to bfloat16 (the
+    build before the norms were kept in float32)."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import init_cache, prefill
+
+    norms = ("norm1", "norm2", "norm_x", "final_norm", "enc_norm")
+    types = {str(p.dtype) for name, p in params.named_parameters()
+             if name.rpartition(".")[0].rpartition(".")[2] in norms}
+    cast = copy.deepcopy(params)
+    for name, mod in cast.named_modules():
+        if name.rpartition(".")[2] in norms:
+            mod.to(torch.bfloat16)
+    cache = init_cache(cfg, toks.shape[0], toks.shape[1], torch.bfloat16,
+                       device)
+    got, _ = prefill(cast, cfg, toks, cache, impl="kernel", device=device)
+    del cast, cache
+    torch.cuda.empty_cache()
+    equal = torch.equal(got, logits)
+    check(types == {"torch.float32"} and equal,
+          f"bf16 model: norm types {types}; prefill logits with bfloat16 "
+          f"norms equal to the float32 norms' bit for bit: {equal}")
+    return {"norm_dtypes": sorted(types),
+            "logits_equal_with_bfloat16_norms": equal}
+
+
 def _serve_bf16(device) -> dict:
     """llama3.2-3b at full width and depth in bfloat16 weights and cache:
     ``prefill`` of 2 x BF16_PROMPT tokens through the bfloat16 flash kernel
@@ -2864,6 +2957,7 @@ def _serve_bf16(device) -> dict:
     check(torch.isfinite(k_logits).all().item()
           and tuple(k_logits.shape) == (2, cfg.vocab),
           f"bf16 prefill logits: shape {tuple(k_logits.shape)}")
+    norms = _bf16_norms_check(params, cfg, toks, runs["kernel"][0], device)
     layers = _bf16_layer_check(params, cfg, toks, device)
     prof, _ = _profiled(lambda: run("kernel"))
     pre = {"phase": "serve", "run": "prefill", "arch": arch,
@@ -2878,7 +2972,7 @@ def _serve_bf16(device) -> dict:
                (k_logits - e_logits).abs().max() / e_logits.abs().max()),
            "argmax_equal": int((k_logits.argmax(-1)
                                 == e_logits.argmax(-1)).sum()),
-           "per_layer": layers, "profile": prof}
+           "per_layer": layers, "norms": norms, "profile": prof}
     emit(pre)
     engine, _ = _engine_run(params, cfg, arch, "orca", device)
     profile = _engine_profile(params, cfg, arch, device)
@@ -3637,6 +3731,7 @@ def phase_train(device) -> dict:
     rec = {"phase": "train", "run": "summary", "arch": TRAIN_ARCH,
            "memory_left_by_serve": left, "kernel_under_grad_raises": raised,
            "losses": {k: r["losses"] for k, r in runs.items()},
+           # repro-lint: disable=RT006 -- every step read its loss back before the stop
            "phase_s": time.perf_counter() - t_phase}
     emit(rec)
     launcher = _train_launcher(device)
@@ -3740,9 +3835,295 @@ def _dryrun_record() -> dict:
                 "dominant": r["dominant"],
                 "trace_s": r["trace_s"]})
     rec = {"phase": "train", "run": "dryrun", "analytic": True,
+           # repro-lint: disable=RT006 -- host work: the dry run traces on the meta device
            "cells": cells, "seconds": time.perf_counter() - t0}
     emit(rec)
     return rec
+
+def _twin(name: str):
+    """The module of ``examples/<name>_torch.py``."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _twin_kernels() -> dict:
+    """Each kernel a twin launches -> the module of its CUDA wrapper, the
+    wrapper's name there, and its plain version on the wrapper's own
+    (bound) arguments."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mapping_eval as me
+
+    return {
+        "mapping_eval_fused": (
+            me, "mapping_eval_fused_cuda",
+            lambda a: me.mapping_eval_fused_plain(
+                a["t_proc"], a["sched_idx"], a["chip"], a["ppos"],
+                a["n_chips"])),
+        "decode_attention": (
+            da, "decode_attention_cuda",
+            lambda a: da.decode_attention_plain(
+                a["q"], a["k_cache"], a["v_cache"], a["lengths"],
+                a["scale"])),
+        "flash_attention": (
+            fa, "flash_attention_cuda",
+            lambda a: fa.flash_attention_plain(a["q"], a["k"], a["v"],
+                                               a["causal"], a["scale"]))}
+
+
+def _arg_key(v):
+    import torch
+
+    return [list(v.shape), str(v.dtype)] if torch.is_tensor(v) else v
+
+
+def _clone(v):
+    import torch
+
+    if torch.is_tensor(v):
+        return v.detach().clone()
+    return tuple(_clone(x) for x in v) if isinstance(v, tuple) else v
+
+
+@contextlib.contextmanager
+def _keeping_calls(kept: dict, extends: list):
+    """While open, each twin kernel's CUDA wrapper runs as before, and its
+    first TWIN_HELD calls at each distinct set of argument shapes (and
+    non-tensor arguments) also keep clones of their arguments and result
+    in ``kept[(kernel, shapes)]``, beside the count of calls; no launch of
+    its own. Each prompt chunk the dense engine runs (``_extend``) appends
+    to ``extends``."""
+    import inspect
+
+    from repro_torch.serving.engine import ServingEngine
+
+    saved = []
+    for name, (mod, attr, _) in _twin_kernels().items():
+        fn = getattr(mod, attr)
+
+        def keep(*args, _fn=fn, _sig=inspect.signature(fn), _name=name,
+                 **kwargs):
+            out = _fn(*args, **kwargs)
+            bound = _sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            key = json.dumps({k: _arg_key(v)
+                              for k, v in bound.arguments.items()})
+            entry = kept.setdefault((_name, key), {"calls": 0, "held": []})
+            entry["calls"] += 1
+            if len(entry["held"]) < TWIN_HELD:
+                entry["held"].append((
+                    {k: _clone(v) for k, v in bound.arguments.items()},
+                    _clone(out)))
+            return out
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, keep)
+    extend = ServingEngine._extend
+
+    def counted_extend(self, *args, **kwargs):
+        extends.append(1)
+        return extend(self, *args, **kwargs)
+
+    saved.append((ServingEngine, "_extend", extend))
+    ServingEngine._extend = counted_extend
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def _hold_kept(label: str, kept: dict, launches: dict) -> list:
+    """Each kept call against its kernel's plain version on the kept
+    arguments: mapping eval bit for bit, attention within ATTN_TOLS of
+    q's type; the wrappers' calls summed per kernel equal its launches.
+    Returns a record per kernel and shape."""
+    import torch
+
+    plains = {n: plain for n, (_, _, plain) in _twin_kernels().items()}
+    recs, calls = [], {}
+    for (name, key), entry in kept.items():
+        calls[name] = calls.get(name, 0) + entry["calls"]
+        err, tol = 0.0, 0.0
+        for args, got in entry["held"]:
+            want = plains[name](args)
+            if name == "mapping_eval_fused":
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"examples {label}: mapping_eval_fused at {key} "
+                      f"differs from its plain version")
+                continue
+            tol = ATTN_TOLS[str(args["q"].dtype).removeprefix("torch.")]
+            e = float((got.float() - want.float()).abs().max())
+            check(torch.isfinite(got).all().item() and e <= tol,
+                  f"examples {label}: {name} at {key} differs from its "
+                  f"plain version: max abs err {e} > {tol}")
+            err = max(err, e)
+        recs.append({"kernel": name, "args": json.loads(key),
+                     "calls": entry["calls"], "held": len(entry["held"]),
+                     "max_abs_err": err, "tol": tol})
+    check(calls == {k: n for k, n in launches.items() if n},
+          f"examples {label}: wrapper calls {calls}, launches {launches}")
+    return recs
+
+
+def _twin_launches(label: str, out, n_extend: int) -> dict:
+    """Each kernel on a twin's path -> the launches its run must show,
+    from the run's own iteration stats: decode attention once per layer of
+    each iteration that decoded; flash once per encoder layer for the one
+    ``encode``, and once per decoder layer (cross-attention) for each such
+    iteration and each prompt chunk. None where the count is the search's
+    own (at least one)."""
+    from repro_torch.configs import all_archs
+
+    want = dict.fromkeys(EXAMPLE_KERNELS[label])
+    if label not in EXAMPLE_ARCHS:
+        return want
+    cfg = all_archs()[EXAMPLE_ARCHS[label]].reduced()
+    decode_iters = (out["decode_iterations"] if label == "codesign_serving"
+                    else sum(s["decode_iterations"] for s in out.values()))
+    want["decode_attention"] = cfg.n_layers * decode_iters
+    if "flash_attention" in want:
+        want["flash_attention"] = cfg.encoder_layers \
+            + cfg.n_layers * (decode_iters + n_extend)
+    return want
+
+
+def _run_twin(label: str, name: str, argv: list) -> dict:
+    """``main(argv)`` of a twin with the launch counters set to 0 just
+    before and read just after: each kernel of EXAMPLE_KERNELS[label]
+    launched, as often as ``_twin_launches`` says where it says, and no
+    other; its dispatches of the attention kernels that often and none
+    plain (the search's final pricing by the numpy oracle is host work by
+    design); every distinct call shape held against the plain version
+    (``_hold_kept``)."""
+    kept, extends = {}, []
+    with _keeping_calls(kept, extends):
+        out, wall, launches, disp = _counted(lambda: _twin(name).main(argv))
+    got = {k: n for k, n in launches.items() if n}
+    want = _twin_launches(label, out, len(extends))
+    check(set(got) == set(want)
+          and all(got[k] == n for k, n in want.items() if n is not None)
+          and all(disp.get(f"{k}:cuda") == n for k, n in want.items()
+                  if n is not None)
+          and not any(d.endswith(":plain") for d in disp),
+          f"examples {label}: launches {got}, dispatches {disp}; expected "
+          f"{want} (None: at least one)")
+    rec = {"phase": "examples", "twin": label, "argv": argv,
+           "seconds": wall, "launches": got, "expected": want,
+           "dispatches": disp, "prompt_chunks": len(extends),
+           "held": _hold_kept(label, kept, launches)}
+    emit(rec)
+    return {**rec, "out": out}
+
+
+def _quickstart_plain(card: dict) -> dict:
+    """quickstart_torch on ``--device cpu`` (the kernel's plain version)
+    against its card run ``card``: the best hardware exactly; latency,
+    energy, MC, EDP and the BO history within 1e-3 relative (the search
+    goldens' tolerance, which the CPU test holds against the JAX
+    example)."""
+    t0 = time.perf_counter()
+    host = _twin("quickstart").main(["--device", "cpu"])
+    hardware = ("spec", "grid", "ws", "os", "nop", "dram", "mb", "tp")
+    numbers = [(k, card[k], host[k]) for k in (
+        "latency_s", "energy_j", "mc", "edp")] + [
+        (f"bo_history[{i}]", a, b) for i, (a, b) in enumerate(
+            zip(card["bo_history"], host["bo_history"]))]
+    check({k: card[k] for k in hardware} == {k: host[k] for k in hardware}
+          and len(card["bo_history"]) == len(host["bo_history"])
+          and all(math.isclose(a, b, rel_tol=1e-3) for _, a, b in numbers),
+          f"examples quickstart: the card's {card} against the plain "
+          f"version's {host}")
+    rec = {"phase": "examples", "run": "quickstart_plain",
+           "hardware_equal": True,
+           "bit_for_bit": all(a == b for _, a, b in numbers),
+           "max_rel_diff": max(abs(a - b) / abs(b) if b else abs(a)
+                               for _, a, b in numbers),
+           # repro-lint: disable=RT006 -- host work: the search on the CPU
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+def _train_small_resume() -> dict:
+    """train_small_torch for TRAIN_SMALL_STEPS steps into a temporary
+    directory, then again in it: the second run resumes from the step-25
+    checkpoint, and its steps' losses equal the first run's bit for bit."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--steps", str(TRAIN_SMALL_STEPS), "--ckpt-dir", ckpt]
+        first = _run_twin("train_small", "train_small", argv)
+        again = _run_twin("train_small", "train_small", argv)
+    logs = {g["step"]: g["loss"] for g in first["out"]["logs"]}
+    resumed = {g["step"]: g["loss"] for g in again["out"]["logs"]}
+    check(first["out"]["resumed_from"] is None
+          and again["out"]["resumed_from"] == 25
+          and sorted(resumed) == list(range(25, TRAIN_SMALL_STEPS))
+          and all(math.isfinite(v) for v in logs.values())
+          and all(resumed[k] == logs[k] for k in resumed),
+          f"train_small: resumed from {again['out']['resumed_from']}, "
+          f"losses {resumed} against the uninterrupted run's {logs}")
+    rec = {"phase": "examples", "run": "train_small_resume",
+           "params": first["out"]["params"], "steps": TRAIN_SMALL_STEPS,
+           "resumed_from": 25, "losses": logs, "resumed_losses": resumed,
+           "bit_for_bit": True, "step_s": [g["sec"] for g in
+                                          first["out"]["logs"]],
+           "seconds": first["seconds"] + again["seconds"]}
+    emit(rec)
+    return rec
+
+
+def phase_examples() -> dict:
+    """The four examples' twins on the card at their JAX originals'
+    default arguments (see the module docstring); the phase's seconds."""
+    t0 = time.perf_counter()
+    quick = _run_twin("quickstart", "quickstart", [])
+    quick_plain = _quickstart_plain(quick["out"])
+    serve = _run_twin("serve_llm", "serve_llm", [])
+    service = _run_twin("serve_llm_service", "serve_llm", ["--service"])
+    whisper = _run_twin("serve_llm_whisper", "serve_llm",
+                        ["--arch", "whisper-tiny"])
+    codesign = _run_twin("codesign_serving", "codesign_serving", [])
+    for label, rec in (("serve_llm", serve), ("serve_llm_service", service),
+                       ("serve_llm_whisper", whisper)):
+        check(all(s["unfinished"] == 0 and s["output_tokens"] == 8 * 12
+                  for s in rec["out"].values()),
+              f"examples {label}: {rec['out']}")
+    check(codesign["out"]["summary"]["unfinished"] == 0
+          and math.isfinite(quick["out"]["edp"]),
+          f"examples: codesign {codesign['out']}, quickstart "
+          f"{quick['out']}")
+    train = _train_small_resume()
+    t_proc = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, check=False)
+    check(proc.returncode == 0 and "best hardware: spec=" in proc.stdout,
+          f"examples/quickstart_torch.py as a process: exit "
+          f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    rec = {"phase": "examples", "run": "summary",
+           "quickstart": {k: quick["out"][k] for k in (
+               "spec", "grid", "ws", "os", "mb", "tp", "latency_s",
+               "energy_j", "mc", "edp")},
+           "serve_llm_iterations": {
+               label: {k: s["iterations"] for k, s in rec["out"].items()}
+               for label, rec in (("engine", serve), ("service", service),
+                                  ("whisper", whisper))},
+           "codesign": {k: v for k, v in codesign["out"].items()
+                        if k != "summary"},
+           "quickstart_plain_bit_for_bit": quick_plain["bit_for_bit"],
+           "train_small_params": train["params"],
+           "standalone_quickstart_s": time.perf_counter() - t_proc,
+           "phase_s": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
@@ -4236,6 +4617,9 @@ def main(argv=None) -> int:
     if "train" not in phases:
         return 0
     phase_train(device)
+    if "examples" not in phases:
+        return 0
+    phase_examples()
     if "times" not in phases:
         return 0
     at_main = phase_times(ev, runs)

@@ -302,9 +302,10 @@ class DenseTimingBackend(TimingBackend):
 
     name = "dense"
 
-    def pass_b(self, t_proc, chip, ppos, n_chips: int):
+    def pass_b(self, t_proc, chip, ppos, n_chips: int):  # repro-lint: hot
         record_backend_dispatch(self.name)
         end, free = dense_pass_b(*self._tensors(t_proc, chip, ppos), n_chips)
+        # repro-lint: disable=RT002 -- boundary: the backend protocol returns numpy
         return end.cpu().numpy(), free.cpu().numpy()
 
 
@@ -313,9 +314,10 @@ class KernelTimingBackend(TimingBackend):
 
     name = "kernel"
 
-    def pass_b(self, t_proc, chip, ppos, n_chips: int):
+    def pass_b(self, t_proc, chip, ppos, n_chips: int):  # repro-lint: hot
         end, free = ops.mapping_eval(*self._tensors(t_proc, chip, ppos),
                                      n_chips)
+        # repro-lint: disable=RT002 -- boundary: the backend protocol returns numpy
         return end.cpu().numpy(), free.cpu().numpy()
 
 
@@ -332,13 +334,14 @@ class FusedTimingBackend(TimingBackend):
         super().__init__(device)
         self.grid_order = grid_order
 
-    def pass_b(self, t_proc, chip, ppos, n_chips: int):
+    def pass_b(self, t_proc, chip, ppos, n_chips: int):  # repro-lint: hot
         t_proc, chip, ppos = self._tensors(t_proc, chip, ppos)
         sched = torch.arange(chip.shape[-1], dtype=torch.int32,
                              device=chip.device).expand(chip.shape)
         end, free = ops.mapping_eval_fused(t_proc, sched.contiguous(), chip,
                                            ppos, n_chips,
                                            grid_order=self.grid_order)
+        # repro-lint: disable=RT002 -- boundary: the backend protocol returns numpy
         return end.cpu().numpy(), free.cpu().numpy()
 
 
@@ -384,6 +387,7 @@ def splice_latencies(base_lat, idxs, cand_lat) -> np.ndarray:
     return full
 
 
+# repro-lint: hot
 def fold_request_timings(rollout, batch_latency_s, device=None):
     """Price a rollout on the device: ``batch_latency_s`` (..., B)
     per-iteration latencies (any leading axes — e.g. a whole GA population;
@@ -423,7 +427,9 @@ def fold_request_timings(rollout, batch_latency_s, device=None):
     ttft = torch.where(served, cum[..., fb1] - cum[..., arr_idx], inf)
     tpot = torch.where(fin, (cum[..., db1] - cum[..., fb1]) / steps, inf)
     tpot = torch.where(one_tok, torch.zeros_like(tpot), tpot)
+    # repro-lint: disable=RT002 -- boundary: RequestTimings holds numpy
     ttft, tpot = ttft.cpu().numpy(), tpot.cpu().numpy()
+    # repro-lint: disable=RT002 -- boundary: RequestTimings holds numpy
     makespan = cum[..., -1].cpu().numpy()
     return RequestTimings(
         ttft_s=ttft, tpot_s=tpot,

@@ -78,7 +78,7 @@ from .workload import ExecutionGraph
 _WS_IDX = DATAFLOWS.index("WS")
 
 
-def _wsum(x):
+def _wsum(x):  # repro-lint: hot
     """Sum over the last (predecessor-lane) axis as a left-to-right chain
     of adds, the order of a sequential reduction."""
     acc = x[..., 0]
@@ -88,7 +88,7 @@ def _wsum(x):
 
 
 def _structural_pass(order, lc, n_succ, hops, pred_cols, pred_valid,
-                     n_chips: int) -> dict:
+                     n_chips: int) -> dict:  # repro-lint: hot
     """Mapping-only quantities for a population: Algorithm-2 flags as dense
     gathers plus the schedule-order index tensors the timing pass needs.
     ``order`` (P, T, 2) and ``lc`` (P, rows, M) int64. Predecessors are
@@ -169,7 +169,7 @@ def _structural_pass(order, lc, n_succ, hops, pred_cols, pred_valid,
 
 def _cost_pass(struct, lc, pred_cols, dram_hops, flow_of_chip, ws_resident,
                out_bytes, comp_s, comp_e, weight_b, psum_b, output_b, rr,
-               stream_b, extra_w, dram_bw, nop_bw):
+               stream_b, extra_w, dram_bw, nop_bw):  # repro-lint: hot
     """Per-op ``T_proc`` in *table* order (B, P, rows, M) + total energy
     (B, P) for every (batch, individual) pair. Tables carry a leading batch
     axis: (B, rows, M[, D]). The schedule-order gather (pass A) is left to
@@ -217,7 +217,7 @@ def _cost_pass(struct, lc, pred_cols, dram_hops, flow_of_chip, ws_resident,
 
 
 def _pass_ab(tproc_flat, sched_idx, chip_seq, ppos, n_chips: int,
-             backend: str, grid_order: "str | None"):
+             backend: str, grid_order: "str | None"):  # repro-lint: hot
     """Backend-dispatched pass A (gather) + pass B (timing recurrence):
     tproc_flat (B, P, L=rows*M), sched_idx (P, T), chip_seq (P, T),
     ppos (P, T, W) -> (end (B, P, T), chip_free (B, P, C)). ``fused``
@@ -232,7 +232,7 @@ def _pass_ab(tproc_flat, sched_idx, chip_seq, ppos, n_chips: int,
     return dense_pass_b(tproc, chip_seq, ppos, n_chips)
 
 
-def _front_passes(order_rc, l2c, n_chips: int, st: dict):
+def _front_passes(order_rc, l2c, n_chips: int, st: dict):  # repro-lint: hot
     """Structural pass once per individual, cost pass per (batch,
     individual): -> (struct, tproc_flat (B, P, L), energy_pj (B, P)).
     ``st`` holds the evaluator's device statics and stacked tables."""
@@ -246,6 +246,7 @@ def _front_passes(order_rc, l2c, n_chips: int, st: dict):
     return struct, tproc.reshape(tproc.shape[:2] + (-1,)).contiguous(), energy
 
 
+# repro-lint: hot
 def _grouped_population_pass(order_rc, l2c, n_chips: int, st: dict,
                              backend: str = "fused", full: bool = False,
                              grid_order: "str | None" = None):

@@ -14,11 +14,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# one lock per source: threads of one process (batched BO prices a
+# batch's points from a thread per card) build it one at a time
+_BUILD_LOCKS: dict[str, threading.Lock] = {}
+_BUILD_LOCKS_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -44,21 +49,27 @@ def library_path(source: str) -> Path:
 
 def compile_source(source: str) -> Path:
     """Compile ``csrc/<source>`` unless the hashed library exists; returns
-    its path. The output is written under a temporary name and renamed,
-    so concurrent builds never load a half-written file."""
+    its path. The output is written under a temporary name of this process
+    and renamed, so concurrent builds never load a half-written file; the
+    threads of one process take the source's lock, so the second finds
+    the first's library instead of writing the same temporary file."""
     out = library_path(source)
-    if out.exists():
+    with _BUILD_LOCKS_LOCK:
+        lock = _BUILD_LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if out.exists():
+            return out
+        nvcc = find_nvcc()
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{source}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
         return out
-    nvcc = find_nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -213,7 +213,7 @@ def shared_kv(k_cache, v_cache) -> bool:
         and k_cache.stride() == v_cache.stride()
 
 
-def kernel_plan(q, k_cache, v_cache) -> DecodePlan:
+def kernel_plan(q, k_cache, v_cache) -> DecodePlan:  # repro-lint: hot
     """The plan the kernel takes for these CUDA operands."""
     b, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
@@ -304,7 +304,7 @@ def blocks_per_sm(plan: DecodePlan, q_dtype, kv_dtype, device) -> int:
     return out.value
 
 
-def _check_operand(name, x, dtype, device, dims):
+def _check_operand(name, x, dtype, device, dims):  # repro-lint: hot
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got "
                         f"{type(x).__name__}")
@@ -322,6 +322,7 @@ def _check_operand(name, x, dtype, device, dims):
                          f"16-byte aligned start; got strides {x.stride()}")
 
 
+# repro-lint: hot
 def decode_attention_cuda(q, k_cache, v_cache, lengths, scale=None):
     """Launch ``decode_attention_kernel`` and, when the split plan has more
     than one range, ``decode_attention_combine_kernel`` on the current

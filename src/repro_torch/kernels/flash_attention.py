@@ -199,7 +199,7 @@ def f32_blocks_per_sm(d: int, device) -> int:
     return out.value
 
 
-def _operands(q, k, v):
+def _operands(q, k, v):  # repro-lint: hot
     """Check the kernels' operands; returns (B, Hq, Hkv, Lq, Lk, D)."""
     dev = q.device
     if dev.type != "cuda":
@@ -231,6 +231,7 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
+# repro-lint: hot
 def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     """Launch the kernel of q's dtype (``flash_attention_kernel`` for
     float32, under :func:`flash_f32_plan`; ``flash_attention_bf16_kernel``

@@ -99,8 +99,9 @@ def reset_launch_counts() -> None:
                 counts[k] = 0
 
 
-def default_grid_order() -> str:
+def default_grid_order() -> str:  # repro-lint: hot
     """``REPRO_FUSED_GRID_ORDER`` if set, else ``batch_major``."""
+    # repro-lint: disable=RT004 -- read on every fused launch: the wrappers' host time, ROADMAP R-9
     order = os.environ.get(_GRID_ORDER_ENV, "batch_major")
     if order not in GRID_ORDERS:
         raise ValueError(f"{_GRID_ORDER_ENV}={order!r}; "
@@ -120,7 +121,7 @@ def check_grid_order(order: str) -> int:
 # --------------------------------------------------------------------------
 
 
-def mapping_eval_plain(t_proc, chip, ppos, n_chips: int):
+def mapping_eval_plain(t_proc, chip, ppos, n_chips: int):  # repro-lint: hot
     """The recurrence over T as torch ops, vectorised over (B, P):
     (B, P, T) f32, (P, T), (P, T, W) -> (end (B, P, T), free (B, P, C)).
     Slot T of the end vector is the sentinel and stays 0."""
@@ -145,7 +146,7 @@ def mapping_eval_plain(t_proc, chip, ppos, n_chips: int):
     return end[:, :, :t_len].contiguous(), free
 
 
-def gather_sched(t_proc_flat, sched_idx):
+def gather_sched(t_proc_flat, sched_idx):  # repro-lint: hot
     """Pass A: (B, P, L) cost rows, (P, T) flat index -> (B, P, T)."""
     n_batch = t_proc_flat.shape[0]
     idx = sched_idx.long().unsqueeze(0).expand(n_batch, -1, -1)
@@ -274,6 +275,7 @@ def device_limits(device) -> tuple[int, int, int]:
                           else dev.index)
 
 
+# repro-lint: hot
 def kernel_plan(t_proc, chip, ppos, n_chips: int, fused: bool) -> RowPlan:
     """The plan the kernel takes for these CUDA operands."""
     n_batch, _, n_flat = t_proc.shape
@@ -322,7 +324,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, x, dtype, shape, device):
+def _check(name, x, dtype, shape, device):  # repro-lint: hot
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got "
                         f"{type(x).__name__}")
@@ -367,7 +369,7 @@ def _common_checks(t_proc, chip, ppos, n_chips):
 
 
 def _launch(name: str, t_proc, sched_idx, chip, ppos, n_chips: int,
-            grid_order: str, route: str | None):
+            grid_order: str, route: str | None):  # repro-lint: hot
     """Check the operands, plan the call and launch the route's kernel on
     the current stream (no sync). ``sched_idx`` is None for the unfused
     kernel. ``route`` None takes the plan's; "global" forces the global-row
@@ -416,7 +418,7 @@ def _launch(name: str, t_proc, sched_idx, chip, ppos, n_chips: int,
     return end, free
 
 
-def mapping_eval_cuda(t_proc, chip, ppos, n_chips: int,
+def mapping_eval_cuda(t_proc, chip, ppos, n_chips: int,  # repro-lint: hot
                       grid_order: str = "batch_major",
                       route: str | None = None):
     """Launch ``mapping_eval_kernel<false>`` (or, for long chains, the
@@ -428,6 +430,7 @@ def mapping_eval_cuda(t_proc, chip, ppos, n_chips: int,
                    grid_order, route)
 
 
+# repro-lint: hot
 def mapping_eval_fused_cuda(t_proc, sched_idx, chip, ppos, n_chips: int,
                             grid_order: str = "batch_major",
                             route: str | None = None):
@@ -439,11 +442,13 @@ def mapping_eval_fused_cuda(t_proc, sched_idx, chip, ppos, n_chips: int,
                    n_chips, grid_order, route)
 
 
+# repro-lint: hot
 def autotune_grid_order(t_proc, sched_idx, chip, ppos, n_chips: int) -> str:
     """The faster fused grid order for this shape on the card: both orders
     are launched once to warm up and once under CUDA events, and the
     choice is cached per (B, P, L, T, W, C). ``REPRO_FUSED_GRID_ORDER``
     always wins; CPU tensors never probe (the plain version has no grid)."""
+    # repro-lint: disable=RT004 -- read on every fused launch: the wrappers' host time, ROADMAP R-9
     if os.environ.get(_GRID_ORDER_ENV) or t_proc.device.type != "cuda":
         return default_grid_order()
     key = (tuple(t_proc.shape), chip.shape[-1], ppos.shape[-1], n_chips,

@@ -38,7 +38,7 @@ def clear_dispatch_stats() -> None:
         _DISPATCH.clear()
 
 
-def route(x) -> str:
+def route(x) -> str:  # repro-lint: hot
     """``"cuda"`` for a CUDA tensor, ``"plain"`` for a CPU tensor."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
@@ -60,7 +60,7 @@ def reset_launch_counts() -> None:
         mod.reset_launch_counts()
 
 
-def mapping_eval(t_proc, chip, ppos, n_chips: int,
+def mapping_eval(t_proc, chip, ppos, n_chips: int,  # repro-lint: hot
                  grid_order: str = "batch_major"):
     """Pass B: t_proc (B, P, T), chip (P, T), ppos (P, T, W) ->
     (end (B, P, T), free (B, P, C))."""
@@ -75,7 +75,7 @@ def mapping_eval(t_proc, chip, ppos, n_chips: int,
 
 
 def mapping_eval_fused(t_proc, sched_idx, chip, ppos, n_chips: int,
-                       grid_order: str | None = None):
+                       grid_order: str | None = None):  # repro-lint: hot
     """Pass A + B: ``t_proc`` is the UN-gathered (B, P, L) cost rows,
     gathered per step via ``sched_idx`` (P, T). ``grid_order=None`` asks
     the autotune probe on the card (:func:`default_grid_order` on CPU)."""
@@ -94,6 +94,7 @@ def mapping_eval_fused(t_proc, sched_idx, chip, ppos, n_chips: int,
     return out
 
 
+# repro-lint: hot
 def decode_attention(q, k_cache, v_cache, lengths, scale=None):
     """One-token GQA decode: q [B, Hq, D], caches [B, S, Hkv, D], lengths
     [B] int32 -> [B, Hq, D] in q's dtype. q and the caches are float32 or
@@ -113,6 +114,7 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
     return out
 
 
+# repro-lint: hot
 def flash_attention(q, k, v, causal: bool = True, scale=None):
     """Blocked GQA attention: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] ->
     [B, Hq, Lq, D] in q's dtype; causal with offset Lk - Lq. q, k and v
@@ -130,6 +132,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     return out
 
 
+# repro-lint: hot
 def ssd_scan(x, dt, a, b_mat, c_mat, chunk: int = _ss.DEFAULT_CHUNK):
     """Mamba-2 SSD chunked scan from a zero state: x [B, L, H, P], dt
     [B, L, H] float32, a [H] float32, b_mat/c_mat [B, L, N] -> (y

@@ -210,7 +210,7 @@ def _lib() -> ctypes.CDLL:
     return bind(build.load(_SOURCE))
 
 
-def _check(name, t, dtype, device, shape):
+def _check(name, t, dtype, device, shape):  # repro-lint: hot
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got "
                         f"{type(t).__name__}")
@@ -226,7 +226,7 @@ def _check(name, t, dtype, device, shape):
                          f"strides {t.stride()}")
 
 
-def _operands(x, dt, a, b_mat, c_mat):
+def _operands(x, dt, a, b_mat, c_mat):  # repro-lint: hot
     """Check the kernels' operands; returns (B, L, H, P, N)."""
     dev = x.device
     if dev.type != "cuda":
@@ -249,7 +249,7 @@ def _operands(x, dt, a, b_mat, c_mat):
     return bsz, l, h, p, n
 
 
-def _strides(x, dt, b_mat, c_mat):
+def _strides(x, dt, b_mat, c_mat):  # repro-lint: hot
     return (*x.stride()[:3], *dt.stride()[:3], b_mat.stride(0),
             b_mat.stride(1), c_mat.stride(0), c_mat.stride(1))
 
@@ -260,7 +260,7 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def ssd_scan_cuda(x, dt, a, b_mat, c_mat):
+def ssd_scan_cuda(x, dt, a, b_mat, c_mat):  # repro-lint: hot
     """Launch the SSD kernels on the current stream (no sync): x
     [B, L, H, P] and b_mat/c_mat [B, L, N] (float32 or bfloat16, one dtype,
     last dimension contiguous, any other strides: the slices of a fused

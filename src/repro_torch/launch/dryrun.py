@@ -75,20 +75,12 @@ H100_BYTES = 80e9          # an H100 SXM's HBM3, 80 GB
 # ---------------------------------------------------------------------------
 
 
-# the reference's norm gains and biases stay float32 at any weight dtype
-_FLOAT32_NORMS = ("norm1", "norm2", "norm_x", "final_norm", "enc_norm")
-
-
 def abstract_params(cfg: ModelConfig):
     """The stacked parameters of ``cfg`` on ``meta``, in the reference's
     types (bfloat16, its norms float32): a :class:`Transformer` built
     without a generator (``init_model`` draws on a generator, which the
     meta device has none of), then stacked as the reference's."""
-    model = Transformer(cfg, PARAM_DTYPE, META, None)
-    for name, mod in model.named_modules():
-        if name.rpartition(".")[2] in _FLOAT32_NORMS:
-            mod.float()
-    return stack_params(model, cfg)
+    return stack_params(Transformer(cfg, PARAM_DTYPE, META, None), cfg)
 
 
 def abstract_opt(params) -> dict:

@@ -301,6 +301,7 @@ def _scatter_cache(cache, new, pos):
     return cache
 
 
+# repro-lint: hot
 def _decode_write(cache, key, new, pos):
     """Write one decode row ``new`` [B, H, D] of cache ``key`` at ``pos``
     in place, quantized with its scale row into an int8 cache, and return
@@ -321,6 +322,7 @@ def _with_len(cache, lengths):
             "len": lengths}
 
 
+# repro-lint: hot
 def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
     """One-token decode with KV cache. x: [B, 1, d] -> [B, 1, d]. Over an
     int8 cache the attention is eager under both impls, as in the
@@ -349,6 +351,7 @@ def attention_decode(p, x, cfg, rope, cache, impl="kernel"):
     return y, _with_len(cache, lengths)
 
 
+# repro-lint: hot
 def _mla_decode(p, x, cfg, rope, cache, impl):
     """MLA decode in the absorbed form: q_nope projected into the latent
     space beside the rotated q_rope, the new latent row written in place,
@@ -382,6 +385,7 @@ def _mla_decode(p, x, cfg, rope, cache, impl):
         _with_len(cache, lengths)
 
 
+# repro-lint: hot
 def _promoted(q, cache):
     """q and the cache in the type ``jnp.einsum`` computes their product
     in: the wider of the two (a float32 q over a bfloat16 cache upcasts the
@@ -391,6 +395,7 @@ def _promoted(q, cache):
     return q.to(t), cache.to(t)
 
 
+# repro-lint: hot
 def _xla_decode(q, k_cache, v_cache, lengths):
     """q: [B, Hq, D]; caches: [B, S, Hkv, D]. Grouped-head einsums — the KV
     cache is never repeated per query head."""

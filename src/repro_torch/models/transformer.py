@@ -176,9 +176,12 @@ def _rope(cfg: ModelConfig, max_pos: int, device):
     return rope_freqs(cfg.head_dim, max_pos, cfg.rope_theta, device)
 
 
-def _norm_module(cfg, dtype, device):
+def _norm_module(cfg, device):
+    """A block's, the final or the encoder's norm: its gain and bias are
+    float32 whatever the weights' type, as the reference's ``_norm_init``
+    makes them (Mamba's inner norm keeps the weights' type)."""
     cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
-    return cls(cfg.d_model, dtype=dtype, device=device)
+    return cls(cfg.d_model, dtype=torch.float32, device=device)
 
 
 def _norm(cfg, p, x):
@@ -209,17 +212,17 @@ class Block(nn.Module):
 
     def __init__(self, cfg, i, dtype, device, generator, cross=False):
         super().__init__()
-        self.norm1 = _norm_module(cfg, dtype, device)
+        self.norm1 = _norm_module(cfg, device)
         if cfg.mixer_kind(i) == "attn":
             self.attn = Attention(cfg, dtype, device, generator)
         else:
             self.mamba = Mamba(cfg, dtype, device, generator)
         if cross:
-            self.norm_x = _norm_module(cfg, dtype, device)
+            self.norm_x = _norm_module(cfg, device)
             self.cross = Attention(cfg, dtype, device, generator)
         kind = cfg.ffn_kind(i)
         if kind != "none":
-            self.norm2 = _norm_module(cfg, dtype, device)
+            self.norm2 = _norm_module(cfg, device)
         if kind == "moe":
             self.moe = MoE(cfg, dtype, device, generator)
         elif kind == "dense":
@@ -241,7 +244,7 @@ class Transformer(nn.Module):
         check_supported(cfg)
         self.embed = Embedding(cfg.vocab, cfg.d_model, dtype, device,
                                generator)
-        self.final_norm = _norm_module(cfg, dtype, device)
+        self.final_norm = _norm_module(cfg, device)
         self.blocks = nn.ModuleList(
             Block(cfg, i, dtype, device, generator, cfg.cross_attention)
             for i in range(cfg.n_layers))
@@ -252,7 +255,7 @@ class Transformer(nn.Module):
             self.enc_blocks = nn.ModuleList(
                 Block(cfg, i, dtype, device, generator)
                 for i in range(cfg.encoder_layers))
-            self.enc_norm = _norm_module(cfg, dtype, device)
+            self.enc_norm = _norm_module(cfg, device)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -591,6 +594,7 @@ def _mask_cache(old, new, active):
             "len": torch.where(active, new["len"], old["len"])}
 
 
+# repro-lint: hot
 def decode_step(params, cfg: ModelConfig, token, cache, impl="kernel",
                 active=None, device=None, enc_out=None):
     """One decode step. token: [B] -> (logits [B, vocab], cache).

@@ -334,6 +334,7 @@ class AsyncLLMService:
         stats.bump("prefill_tokens", n)
         return int(tok)
 
+    # repro-lint: hot
     def _run_decode(self, decode: list) -> None:
         n = len(decode)
         b = _bucket(n)
@@ -359,6 +360,7 @@ class AsyncLLMService:
             self.params, self._to_device(tok_buf), self.kv.pools,
             self._to_device(tbl_buf), self._to_device(len_buf),
             self._to_device(slot_buf))
+        # repro-lint: disable=RT002 -- boundary: the scheduler reads the tokens on the host
         toks = toks.cpu().numpy()
         for j, r in enumerate(decode):
             r.generated.append(int(toks[j]))
@@ -509,6 +511,7 @@ class AsyncLLMService:
                 self._stamp(r.rid, "done_s")
             it_stats.append(IterationStats(
                 it, n_prefill_tok, len(plan.decode),
+                # repro-lint: disable=RT006 -- prefill and decode read tokens back first
                 time.perf_counter() - t0,
                 queue_depth=queue_depth,
                 slots_used=self.config.max_batch - len(self.free),

@@ -188,6 +188,42 @@ def test_build_paths(monkeypatch, tmp_path):
         build.compile_source("mapping_eval.cu")
 
 
+def test_build_from_threads_compiles_once(monkeypatch, tmp_path):
+    """Threads that ask for one library at once (batched BO prices a
+    batch's points from a thread per card, each loading the kernels) run
+    nvcc once and all get the whole library: before the per-source lock
+    each ran nvcc into the same temporary file, and a card loaded a
+    library while another thread rewrote it ("file too short", on four
+    H100s in ``tests/test_torch_search.py::
+    test_batched_bo_across_cards_matches_one_card``). Here a stand-in
+    nvcc writes its output in two parts, a moment apart."""
+    import threading
+
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        f'echo run >> "{calls}"\n'
+        'printf part1 > "$2"; sleep 0.3; printf part2 >> "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "build_dir", lambda: tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    got = []
+    threads = [threading.Thread(
+        target=lambda: got.append(build.compile_source("mapping_eval.cu")))
+        for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(got) == 4 and len(set(got)) == 1
+    assert got[0].read_text() == "part1part2"
+    assert calls.read_text().splitlines() == ["run"]
+    assert not list(got[0].parent.glob("*.tmp"))
+
+
 # An H100's limits: SMs, shared bytes a block may opt in to, per SM.
 H100 = (132, 232448, 233472)
 

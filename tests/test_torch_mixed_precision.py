@@ -30,6 +30,14 @@ and the MoE-free attention + Mamba-2 hybrid of
   not among them: there the JAX package's own two paths (``xla`` and
   ``pallas``) end 5.5e-2 of the largest logit apart after prefill (the
   same tool), so no implementation can be within 2e-2 of both.
+* **the norms of a bfloat16 model** (ROADMAP F8) — every leaf of the
+  port's bfloat16 ``Transformer`` has the type of the same leaf of the JAX
+  package's bfloat16 ``init_model`` for every assigned config (the
+  block, final and encoder norms float32); seeded random float32 gains
+  and biases, as training leaves them, carried across by
+  ``params_from_jax(..., dtype=bfloat16)`` give norm outputs equal to the
+  JAX package's bit for bit, and reduced llama3.2-3b's and whisper-tiny's
+  ``prefill`` and 2 ``decode_step``s within 2e-2 of the JAX package's.
 """
 import dataclasses
 import functools
@@ -86,9 +94,8 @@ def _model(arch, weights):
     (float32 in both packages) get seeded per-head values in place of the
     JAX package's zeros, so a per-head error shows."""
     j_cfg, cfg = _configs(arch)
-    j_dtype = getattr(jnp, weights)
-    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
-                        j_init_model(jax.random.PRNGKey(0), j_cfg, j_dtype))
+    j_init = j_init_model(jax.random.PRNGKey(0), j_cfg, getattr(jnp, weights))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), j_init)
     rng = np.random.default_rng(0)
     for blk in tree["blocks"]:
         if "mamba" in blk:
@@ -96,16 +103,15 @@ def _model(arch, weights):
             blk["mamba"]["a_log"] = rng.normal(0.0, 0.5, h).astype(np.float32)
             blk["mamba"]["dt_bias"] = rng.normal(-1.0, 0.5,
                                                  h).astype(np.float32)
-    # the bfloat16 leaves are exact in float32 and go back exactly
-    j_params = jax.tree_util.tree_map_with_path(
-        lambda path, a: jnp.asarray(a, jnp.float32 if _is_decay(path)
-                                    else j_dtype), tree)
-    params = params_from_jax(tree, cfg, CPU, dtype=getattr(torch, weights))
-    return j_cfg, j_params, cfg, params
+    return j_cfg, _in_types(tree, j_init), cfg, params_from_jax(
+        tree, cfg, CPU, dtype=getattr(torch, weights))
 
 
-def _is_decay(path) -> bool:
-    return getattr(path[-1], "key", None) in ("a_log", "dt_bias")
+def _in_types(tree, like):
+    """The float32 numpy ``tree`` as JAX arrays in the types of the leaves
+    of ``like``: the bfloat16 leaves are exact in float32 and go back
+    exactly."""
+    return jax.tree.map(lambda a, o: jnp.asarray(a, o.dtype), tree, like)
 
 
 def _np(x):
@@ -264,3 +270,138 @@ def test_bf16_cache_engine_matches_jax_engine(sched, impl):
     assert not res.truncated and len(res.finished) == 6
     assert {r.rid: r.generated for r in res.finished} == \
         _jax_engine_tokens(sched)
+
+
+# --------------------------------------------------------------------------
+# the norms of a bfloat16 model (ROADMAP F8)
+# --------------------------------------------------------------------------
+
+NORMS = ("norm1", "norm2", "norm_x", "final_norm", "enc_norm")
+NORM_ARCHS = ("llama3.2-3b", "whisper-tiny")      # RMSNorm, LayerNorm
+
+
+def _dotted(path) -> str:
+    return ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
+@pytest.mark.parametrize("arch", t_configs.ASSIGNED_ARCHS)
+def test_bf16_model_leaf_types_match_jax(arch):
+    """Every parameter of the port's bfloat16 model has the type of the
+    same leaf of the JAX package's bfloat16 ``init_model``: the block,
+    final and encoder norms float32, Mamba's ``a_log`` / ``dt_bias``
+    float32, every other leaf (Mamba's inner norm too) bfloat16."""
+    j_cfg, cfg = j_archs()[arch].reduced(), t_configs.get(arch).reduced()
+    shapes = jax.eval_shape(lambda: j_init_model(jax.random.PRNGKey(0),
+                                                 j_cfg, jnp.bfloat16))
+    want = {_dotted(path): str(leaf.dtype) for path, leaf
+            in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    model = t_models.Transformer(cfg, torch.bfloat16, "meta")
+    got = {name: str(p.dtype).removeprefix("torch.")
+           for name, p in model.named_parameters()}
+    assert got == want
+    assert {n for n, t in got.items() if t == "float32"
+            and n.rpartition(".")[0].rpartition(".")[2] in NORMS}
+
+
+@functools.cache
+def _carried_norms(arch):
+    """(JAX cfg, JAX params, port cfg, port params): the JAX package's
+    bfloat16 ``init_model`` with seeded random float32 gains (about 1) and
+    biases (about 0) in every block, final and encoder norm, as training
+    leaves them, carried across by ``params_from_jax(...,
+    dtype=bfloat16)``."""
+    j_cfg, cfg = j_archs()[arch].reduced(), t_configs.get(arch).reduced()
+    j_init = j_init_model(jax.random.PRNGKey(0), j_cfg, jnp.bfloat16)
+    rng = np.random.default_rng(8)
+
+    def trained(path, a):
+        keys = [getattr(k, "key", None) for k in path]
+        if not set(keys) & set(NORMS):
+            return np.asarray(a, np.float32)
+        mean = 1.0 if keys[-1] == "g" else 0.0
+        return rng.normal(mean, 0.1, a.shape).astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(trained, j_init)
+    return j_cfg, _in_types(tree, j_init), cfg, params_from_jax(
+        tree, cfg, CPU, dtype=torch.bfloat16)
+
+
+def _norm_pairs(j_params, params):
+    """(path, JAX norm dict, port norm module) of every norm named in
+    NORMS."""
+    mods = dict(params.named_modules())
+    leaves = jax.tree_util.tree_flatten_with_path(j_params)[0]
+    paths = sorted({_dotted(path[:-1]) for path, _ in leaves
+                    if _dotted(path[:-1]).rpartition(".")[2] in NORMS})
+    assert paths
+    for path in paths:
+        sub = j_params
+        for key in path.split("."):
+            sub = sub[int(key)] if isinstance(sub, list) else sub[key]
+        yield path, sub, mods[path]
+
+
+@pytest.mark.parametrize("arch", NORM_ARCHS)
+def test_carried_float32_norms_match_jax_bitwise(arch):
+    """With float32 gains and biases that bfloat16 cannot hold, each norm
+    of the port's bfloat16 model gives the JAX package's output bit for
+    bit on seeded bfloat16 activations: both compute in float32 with the
+    gain unrounded and round once to bfloat16."""
+    from repro.models import transformer as jt
+
+    from repro_torch.models import transformer as tt
+
+    j_cfg, j_params, cfg, params = _carried_norms(arch)
+    x = np.random.default_rng(3).standard_normal(
+        (2, 5, cfg.d_model)).astype(np.float32)
+    j_x = jnp.asarray(x, jnp.bfloat16)
+    t_x = torch.as_tensor(x).bfloat16()
+    for path, j_norm, norm in _norm_pairs(j_params, params):
+        assert all(p.dtype == torch.float32 for p in norm.parameters()), path
+        want = np.asarray(jt._norm(j_cfg, j_norm, j_x), np.float32)
+        got = tt._norm(cfg, norm, t_x)
+        assert got.dtype == torch.bfloat16, path
+        np.testing.assert_array_equal(got.float().numpy(), want, err_msg=path)
+
+
+@pytest.mark.parametrize("impl,j_impl", IMPLS)
+@pytest.mark.parametrize("arch", NORM_ARCHS)
+def test_carried_float32_norms_paths_match_jax(arch, impl, j_impl):
+    """The carried model's ``prefill`` and 2 ``decode_step``s (whisper
+    against the JAX package's ``encode`` of seeded frames, itself held to
+    the port's) within 2e-2 of the largest JAX logit, over bfloat16
+    caches, each package from its own cache."""
+    from repro.models import transformer as jt
+
+    j_cfg, j_params, cfg, params = _carried_norms(arch)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, size=(2, 12))
+    j_enc = enc = None
+    if cfg.encoder_layers:
+        frames = (0.02 * rng.standard_normal(
+            (2, cfg.encoder_len, cfg.d_model))).astype(np.float32)
+        j_enc = jt.encode(j_params, j_cfg,
+                          jnp.asarray(frames, jnp.bfloat16), impl=j_impl)
+        enc = t_models.encode(params, cfg, torch.as_tensor(frames).bfloat16(),
+                              impl=impl, device=CPU)
+        _close(enc, j_enc, "encode", BF16_REL)
+        enc = torch.as_tensor(np.asarray(j_enc, np.float32)).bfloat16()
+    j_cache = j_init_cache(j_cfg, 2, 32, dtype=jnp.bfloat16)
+    cache = t_models.init_cache(cfg, 2, 32, dtype=torch.bfloat16, device=CPU)
+    j_logits, j_cache = jt.prefill(j_params, j_cfg, jnp.asarray(toks),
+                                   j_cache, enc_out=j_enc, impl=j_impl)
+    logits, cache = t_models.prefill(params, cfg, torch.as_tensor(toks),
+                                     cache, impl=impl, device=CPU,
+                                     enc_out=enc)
+    _close(logits, j_logits, "prefill logits", BF16_REL)
+    for step in range(2):
+        tok = np.array(jnp.argmax(j_logits, -1))
+        j_logits, j_cache = jt.decode_step(j_params, j_cfg, jnp.asarray(tok),
+                                           j_cache, enc_out=j_enc,
+                                           impl=j_impl)
+        logits, cache = t_models.decode_step(
+            params, cfg, torch.as_tensor(tok), cache, impl=impl, device=CPU,
+            enc_out=enc)
+        _close(logits, j_logits, f"decode step {step}", BF16_REL)
+    assert logits.dtype == torch.bfloat16

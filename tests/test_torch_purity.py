@@ -1,8 +1,11 @@
 """The port stands alone: its main path loads no JAX and no module of the
-JAX package, no file of it imports either, and its entry points run on
-CUDA by default — raising, not falling back to the CPU, where there is
-no CUDA device."""
+JAX package, no file of it imports either (its package, ``chip_smoke.py``,
+the examples' twins ``examples/*_torch.py`` and its ``tools/`` scripts
+other than the two that compare it with the JAX package), and its entry
+points, the twins included, run on CUDA by default — raising, not falling
+back to the CPU, where there is no CUDA device."""
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -11,9 +14,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _example_main import _example  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# tools that hold the port against the JAX package, as the tests do, and
+# the JAX package's own lint
+NOT_PORT_TOOLS = ("mixed_precision_gaps.py", "scan_int8_gaps.py",
+                  "repro_lint.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -65,6 +74,11 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    twins = glob.glob(os.path.join(ROOT, "examples", "*_torch.py"))
+    tools = [p for p in glob.glob(os.path.join(ROOT, "tools", "*.py"))
+             if os.path.basename(p) not in NOT_PORT_TOOLS]
+    assert len(twins) == 4 and len(tools) >= 7
+    files += twins + tools
     assert len(files) > 20
     bad = [f"{os.path.relpath(p, ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imports(p) if _forbidden(mod)]
@@ -117,6 +131,11 @@ def test_default_device_is_cuda_and_never_falls_back():
             g, timing.get_cost_tables(g, ("t",), hw), hw),
         lambda: timing.FusedTimingBackend().pass_b(
             [[1.0]], [[0]], [[[1]]], 1),
+        lambda: _example("quickstart").main(["--bo-iters", "1"]),
+        lambda: _example("serve_llm").main(["--requests", "1"]),
+        lambda: _example("serve_llm").main(["--service"]),
+        lambda: _example("codesign_serving").main([]),
+        lambda: _example("train_small").main(["--steps", "1"]),
     ]
     if torch.cuda.is_available():
         assert timing.resolve_device(None) == torch.device("cuda")
