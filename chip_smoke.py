@@ -45,9 +45,16 @@ Phases — any failure raises and the script exits non-zero:
            D 576 at S 1024 (seeded lengths and split edges) and S 8192, a
            rep that no head group divides (Hq 6), a GQA rep x D past what
            one block held before head groups (Hq 16, Hkv 2, D 576) and
-           the reduced config's Hq 4, D 48.
+           the reduced config's Hq 4, D 48; at jamba-v0.1-52b's GQA (Hq
+           32, Hkv 8, D 128: decode B 8, S 1024, seeded lengths and split
+           edges; flash B 2, L 512 causal) and at the heads of the
+           configurations no whole-model run covers (glm4-9b Hq 32, Hkv 2;
+           qwen2-1.5b Hq 12, Hkv 2; deepseek-moe-16b Hq = Hkv = 16, D 128;
+           qwen1.5-0.5b Hq = Hkv = 16, D 64: the same decode and flash
+           shapes each).
            The SSD scan kernels at mamba2-2.7b's prefill shape (B 2, L 512,
-           H 80, P 64, N 128), at the shapes of tests/test_kernels.py, at
+           H 80, P 64, N 128), at jamba-v0.1-52b's (H 64, P 128, N 16: L
+           512, 700 and, at B 1, 65), at the shapes of tests/test_kernels.py, at
            a ragged L (700), at L < 8 (5) and at the edges of their tiles
            (L 1, 63, 64, 65; N 1, 100, 256; P 5, 96, 100; H 81; B 3), their
            inputs strided slices of one fused projection (at N 1 and P 5
@@ -190,7 +197,23 @@ Phases — any failure raises and the script exits non-zero:
            cross-attention at Lq 1, a step), each within 1e-4 of the
            largest eager value (enc_out, logits); one orca engine run
            through the kernels and one eagerly against an enc_out of 8
-           rows, their tokens equal;
+           rows, their tokens equal. Last, jamba-v0.1-52b (hybrid) at full
+           width, its depth cut from 32 layers to one period of 8 (13.27 B
+           seeded random float32 parameters, 53.06 GB; each Mamba head its
+           own seeded decay): the 2 x 512 ``prefill`` through 1 flash and 7
+           SSD launches against ``impl="eager"`` and ``extend`` (within
+           SPREAD_FACTOR x the chunk spread), each Mamba layer's SSD within
+           1e-4 of the eager SSD and the attention layer's flash within
+           2e-5 of its plain version on the layer's own input; 16 greedy
+           decode steps from it teacher-forced through both impls (1
+           decode launch a step) within LOGIT_REL, a lane parting only at
+           a printed MoE flip under ROUTE_MARGIN; one orca engine run (1
+           decode launch per decode iteration), one profiled, and its
+           streams teacher-forced likewise at its 8 lanes; then its
+           weights moved into the stacked layout at period 8 (two copies
+           do not fit the card) and ``prefill_scanned`` and 4 scanned
+           decode steps bit for bit the unscanned ones; the peak of
+           ``torch.cuda.max_memory_allocated``;
 5. train   training at llama3.2-3b's full width (3.21 B float32
            parameters, weights, gradients and AdamW's moments ~51 GB):
            first one step's gradients at 2 of its 28 layers held to a
@@ -259,13 +282,16 @@ Phases — any failure raises and the script exits non-zero:
            flash at L in {512, 2048}, Lq 100 < Lk 512, phi-3's
            D 96, rep 1, L 512 and whisper's encoder (B 2, L 1,500,
            bidirectional) and cross-attention at decode (B 8, Lq 1,
-           Lk 1,500), decode also at whisper's D 64, rep 1, S 128
+           Lk 1,500) and jamba's (B 2, L 512, Hq 32, Hkv 8, D 128),
+           decode also at whisper's D 64, rep 1, S 128 and at jamba's
+           Hq 32, Hkv 8, D 128, B 8, S 1024
            (float32 through the FMA kernel, in turns with the first float32
            kernel as well: first, new, new, first; bfloat16 through the
            tensor-core kernel; each kernel's device time per call from
            ``torch.profiler`` and the wrapper's host time per call; the
            float32 plan and its blocks per SM by the occupancy calculator),
-           the SSD scan at L in {512, 4096} in both dtypes, its two
+           the SSD scan at L in {512, 4096} in both dtypes, at
+           mamba2-2.7b's heads and at jamba's (H 64, P 128, N 16), its two
            kernels and the first version of the kernel (one block per
            (b, h, 64 columns of P) walking the chunks in series) in turns
            (serial, new, new, serial), with each one's device time per
@@ -340,7 +366,13 @@ SSD_PARITY = [SSD_MAIN, (1, 96, 2, 16, 8), (2, 70, 3, 8, 16),
               (2, 300, 8, 64, 256), (2, 130, 8, 5, 128), (2, 130, 8, 96, 128),
               (2, 130, 8, 100, 128), (2, 130, 81, 64, 128),
               (3, 130, 8, 64, 128)]
-SSD_TIMES = [SSD_MAIN, (2, 4096, 80, 64, 128)]
+# jamba-v0.1-52b's Mamba heads (d_inner 8,192 over 64 heads: P 128, N 16;
+# one 64-row state tile with 48 rows dead, two 64-column y tiles): its 2 x
+# 512 prefill, a ragged L and a chunk edge
+SSD_JAMBA = (2, 512, 64, 128, 16)
+SSD_PARITY += [SSD_JAMBA, (2, 700, 64, 128, 16), (1, 65, 64, 128, 16)]
+SSD_TIMES = [SSD_MAIN, (2, 4096, 80, 64, 128), SSD_JAMBA,
+             (2, 4096, 64, 128, 16)]
 MAMBA_ARCH, MAMBA_LAYERS = "mamba2-2.7b", 64
 MAIN_POP, MAIN_GENS = 512, 16
 # population chunks: CHUNKS chunks on one card against the unsplit path,
@@ -365,6 +397,12 @@ PHI_STEPS = 16                 # teacher-forced decode steps after prefill
 DEEPSEEK_ARCH, DEEPSEEK_FULL_LAYERS, DEEPSEEK_LAYERS = \
     "deepseek-v2-236b", 60, 2
 ROUTE_MARGIN = 1e-5            # an MoE choice this close may flip
+# jamba-v0.1-52b (hybrid: attention at layer 4 of each 8, Mamba-2 at the
+# other 7, MoE of 16 experts top 2 on every odd layer) at full width, its
+# depth cut from 32 layers to one period of 8 (13.27 B parameters, 53.06 GB
+# in float32); JAMBA_STEPS teacher-forced decode steps after its prefill
+JAMBA_ARCH, JAMBA_FULL_LAYERS, JAMBA_LAYERS = "jamba-v0.1-52b", 32, 8
+JAMBA_PARAMS, JAMBA_STEPS = 13_265_531_776, 16
 # whisper-tiny at full width (4 + 4 layers, 37.8 M parameters): 2 x 1,500
 # seeded frames encoded, a 2 x 64-token prefill against them, then
 # WHISPER_STEPS teacher-forced decode steps, over a cache of WHISPER_LEN
@@ -504,11 +542,29 @@ DECODE_PARITY += [(4, 4, 4, 128, 32), (4, 4, 4, 128, 32, "edges"),
                   (8, 4, 2, 96, 32, "edges")]
 FLASH_PARITY += [(4, 4, 4, 16, 16, 32, False), (4, 4, 4, 1, 16, 32, False),
                  (1, 4, 4, 2, 16, 32, False), (1, 4, 4, 64, 16, 32, False)]
+# jamba-v0.1-52b's attention layer (GQA Hq 32, Hkv 8, D 128: rep 4):
+# decode at the serve phase's 8 lanes over 1,024 rows, flash at its 2 x 512
+# prefill
+DECODE_JAMBA = (8, 32, 8, 1024, 128)
+FLASH_JAMBA = (2, 32, 8, 512, 512, 128, True)
+DECODE_PARITY += [DECODE_JAMBA, DECODE_JAMBA + ("edges",)]
+FLASH_PARITY += [FLASH_JAMBA]
+# the configurations no whole-model run has put on the card, by their
+# attention heads (Hq, Hkv, D): glm4-9b (rep 16), qwen2-1.5b (rep 6),
+# deepseek-moe-16b and qwen1.5-0.5b (rep 1); decode at B 8, S 1,024 (and
+# its split edges), flash at B 2, L 512, causal
+UNRUN_HEADS = {"glm4-9b": (32, 2, 128), "qwen2-1.5b": (12, 2, 128),
+               "deepseek-moe-16b": (16, 16, 128), "qwen1.5-0.5b": (16, 16, 64)}
+DECODE_PARITY += [shape for hq, hkv, d in UNRUN_HEADS.values()
+                  for shape in ((8, hq, hkv, 1024, d),
+                                (8, hq, hkv, 1024, d, "edges"))]
+FLASH_PARITY += [(2, hq, hkv, 512, 512, d, True)
+                 for hq, hkv, d in UNRUN_HEADS.values()]
 DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128), DECODE_PHI,
-                DECODE_WHISPER]
+                DECODE_WHISPER, DECODE_JAMBA]
 FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                FLASH_BF16_MAIN, FLASH_PHI, FLASH_WHISPER_ENC,
-               FLASH_WHISPER_CROSS]
+               FLASH_WHISPER_CROSS, FLASH_JAMBA]
 PARITY_POPS = (64, 2048)
 TIME_POPS = (64, 512, 2048, 4096)
 # mapping-eval edge shapes (B, P, T, W, C): T not a multiple of 4 (4-byte
@@ -1944,15 +2000,19 @@ def _replay(params, cfg, arch: str, streams: dict, device,
 def _mamba_layer_check(params, cfg, toks, device) -> dict:
     """Along the eager prefill's own trajectory, every Mamba layer's mixer
     through the SSD kernel and through the eager SSD on the same input:
-    outputs and final states within LOGIT_REL of the largest eager value
-    (these launches are not the path's count). Beside it, a second eager
-    trajectory whose SSD runs at the kernel's chunk of 64 instead of 128:
-    the distance of its logits from the first is the spread that float32
-    rounding alone opens through the depth."""
+    outputs and final states within LOGIT_REL of the largest eager value;
+    in a hybrid stack, every attention layer's q/k/v through the flash
+    kernel and its plain version: within ATTN_TOLS["float32"] (these
+    launches are not the path's count). Attention and the FFN or MoE run
+    eagerly between the layers. Beside it, a second eager trajectory whose
+    SSD runs at the kernel's chunk of 64 instead of 128: the distance of
+    its logits from the first is the spread that float32 rounding alone
+    opens through the depth."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ssd_scan import KERNEL_CHUNK, ssd_chunked
-    from repro_torch.models import mamba2, transformer
+    from repro_torch.models import attention, mamba2, transformer
 
     def eager_at(p, h, chunk):
         z, xs, b_mat, c_mat, dt = mamba2._split_proj(p, h, cfg)
@@ -1964,32 +2024,65 @@ def _mamba_layer_check(params, cfg, toks, device) -> dict:
         return mamba2._gate_out(p, y, z, h, cfg)
 
     worst = {"y": 0.0, "state": 0.0}
+    flash, tol = [], ATTN_TOLS["float32"]
+    b, l = toks.shape
     with torch.no_grad():
+        rope = transformer._rope(cfg, max(cfg.max_seq, l), device)
+        positions = torch.arange(l, device=device).expand(b, l)
         x = x64 = params.embed.e[toks]
-        for blk in params.blocks:
+        for i, blk in enumerate(params.blocks):
             h = transformer._norm(cfg, blk.norm1, x)
-            y_k, c_k = mamba2.mamba_prefill(blk.mamba, h, cfg, None,
-                                            impl="kernel")
-            y_e, c_e = mamba2.mamba_prefill(blk.mamba, h, cfg, None,
-                                            impl="eager")
-            for what, got, want in (("y", y_k, y_e),
-                                    ("state", c_k["state"], c_e["state"])):
-                err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                check(err <= LOGIT_REL * scale, f"ssd_scan on the prefill "
-                      f"path: a layer's {what} differs from the eager SSD by "
-                      f"{err} (largest {scale})")
-                worst[what] = max(worst[what], err / scale)
-            x = transformer._ffn_residual(blk, cfg, x + y_e)
             h64 = transformer._norm(cfg, blk.norm1, x64)
-            x64 = transformer._ffn_residual(blk, cfg,
-                                            x64 + eager_at(blk.mamba, h64,
-                                                           KERNEL_CHUNK))
+            if cfg.mixer_kind(i) == "attn":
+                q, k, v, _ = attention._project_qkv(blk.attn, h, cfg,
+                                                    positions, rope)
+                got = fa.flash_attention_cuda(q, k, v, True)
+                want = fa.flash_attention_plain(q, k, v, True)
+                err = float((got - want).abs().max())
+                check(torch.isfinite(got).all().item() and err <= tol,
+                      f"flash_attention on the prefill path: layer {i}'s "
+                      f"output differs from its plain version by {err}")
+                flash.append({"layer": i, "max_abs_err": err,
+                              "largest": float(want.abs().max())})
+                y, y64 = (attention.attention_train(blk.attn, hh, cfg,
+                                                    positions, rope,
+                                                    impl="eager")
+                          for hh in (h, h64))
+            else:
+                y_k, c_k = mamba2.mamba_prefill(blk.mamba, h, cfg, None,
+                                                impl="kernel")
+                y, c_e = mamba2.mamba_prefill(blk.mamba, h, cfg, None,
+                                              impl="eager")
+                for what, got, want in (("y", y_k, y),
+                                        ("state", c_k["state"],
+                                         c_e["state"])):
+                    err = float((got - want).abs().max())
+                    scale = float(want.abs().max())
+                    check(err <= LOGIT_REL * scale, f"ssd_scan on the "
+                          f"prefill path: layer {i}'s {what} differs from "
+                          f"the eager SSD by {err} (largest {scale})")
+                    worst[what] = max(worst[what], err / scale)
+                y64 = eager_at(blk.mamba, h64, KERNEL_CHUNK)
+            x = transformer._ffn_residual(blk, cfg, x + y)
+            x64 = transformer._ffn_residual(blk, cfg, x64 + y64)
         last = [transformer._logits(params, cfg, transformer._norm(
             cfg, params.final_norm, v)[:, -1]) for v in (x, x64)]
     torch.cuda.synchronize()
     spread = float((last[0] - last[1]).abs().max() / last[0].abs().max())
-    return {"max_rel_layer_err": worst, "eager_chunk_spread": spread}
+    rec = {"max_rel_layer_err": worst, "eager_chunk_spread": spread}
+    if flash:
+        rec["flash_layers"] = flash
+        rec["flash_tol"] = tol
+    return rec
+
+
+def _prefill_launches(cfg) -> dict:
+    """The kernel launches of one float32 ``prefill`` under
+    ``impl="kernel"``: flash once per attention layer, the SSD scan once
+    per Mamba layer."""
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    return {k: n for k, n in (("flash_attention", n_attn),
+                              ("ssd_scan", cfg.n_layers - n_attn)) if n}
 
 
 def _prefill_errs(k_logits, k_cache, logits, cache, tol: float,
@@ -2015,15 +2108,16 @@ def _prefill_errs(k_logits, k_cache, logits, cache, tol: float,
     return {"max_rel_logit_err": err / scale, "max_rel_cache_err": c_err}
 
 
-def _prefill_check(params, cfg, arch: str, kernel: str, device,
-                   embeds=None, first_call: bool = False) -> tuple:
-    """``prefill`` of 2 prompts of 512 tokens through ``kernel`` (the flash
-    kernel, or the SSD kernel of a Mamba model: one launch per layer),
-    against ``impl="eager"`` and against ``extend`` from an empty cache:
-    logits and caches (K/V, or the Mamba state) within LOGIT_REL of the
-    largest reference value; for a Mamba model, within SPREAD_FACTOR x the
-    rounding spread of :func:`_mamba_layer_check`, which also holds the
-    kernel to LOGIT_REL layer by layer. With ``embeds`` (``[2, L,
+def _prefill_check(params, cfg, arch: str, device, embeds=None,
+                   first_call: bool = False) -> tuple:
+    """``prefill`` of 2 prompts of 512 tokens through the kernels (the
+    flash kernel once per attention layer, the SSD kernel once per Mamba
+    layer, nothing else), against ``impl="eager"`` and against ``extend``
+    from an empty cache: logits and caches (K/V, or the Mamba state)
+    within LOGIT_REL of the largest reference value; for a model with Mamba
+    layers, within SPREAD_FACTOR x the rounding spread of
+    :func:`_mamba_layer_check`, which also holds each kernel to its bound
+    layer by layer. With ``embeds`` (``[2, L,
     d_model]``) the prompts are embeddings passed as ``inputs_embeds``, and
     ``extend``, which takes tokens only, is left out. With ``first_call``
     each path first makes one call whose wall is recorded apart. Returns
@@ -2067,13 +2161,10 @@ def _prefill_check(params, cfg, arch: str, kernel: str, device,
             if label == "kernel":
                 launches, disp = ops.launch_counts(), ops.dispatch_stats()
             runs[label] = (logits, cache, wall)
-    want = cfg.n_layers
-    check(launches[kernel] == want and sum(launches.values()) == want
-          and disp == {f"{kernel}:cuda": want},
-          f"{arch} prefill: launches {launches}, dispatches {disp}; "
-          f"expected {want} {kernel}:cuda")
+    want = _prefill_launches(cfg)
+    _only(launches, disp, want, f"{arch} prefill")
     tol, layers = LOGIT_REL, None
-    if kernel == "ssd_scan":
+    if "ssd_scan" in want:
         layers = _mamba_layer_check(params, cfg, args[0], device)
         tol = max(LOGIT_REL, SPREAD_FACTOR * layers["eager_chunk_spread"])
     k_logits, k_cache, _ = runs["kernel"]
@@ -2082,7 +2173,8 @@ def _prefill_check(params, cfg, arch: str, kernel: str, device,
     errs = {label: _prefill_errs(k_logits, k_cache, *runs[label][:2], tol,
                                  f"{arch} prefill, kernel vs {label}")
             for label in labels[1:]}
-    rec = {"phase": "serve", "run": "prefill", "arch": arch, "kernel": kernel,
+    rec = {"phase": "serve", "run": "prefill", "arch": arch,
+           "kernel": "+".join(want),
            "inputs": "tokens" if embeds is None else "inputs_embeds",
            "batch": 2, "prompt": prompt,
            "wall_s": {label: runs[label][2] for label in runs},
@@ -2278,19 +2370,51 @@ def _parting(params, sp, cache, slots, cfg) -> dict | None:
     return None
 
 
-def _scanned_record(params, cfg, arch: str, kernel: str, device) -> dict:
+def _stack_in_place(params, cfg):
+    """``stack_params`` without a second copy of the weights, for a model
+    of one step (n_layers = period), where two copies do not fit the card:
+    each block parameter is moved into its stacked tensor as soon as that
+    tensor exists (one tensor is held twice at a time), so the unscanned
+    blocks and the stacked slots are then one storage."""
+    import torch
+
+    from repro_torch.models import stacked
+
+    class Moving:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def stack(tensors, *args, **kwargs):
+            out = torch.stack(tensors, *args, **kwargs)
+            for k, t in enumerate(tensors):
+                t.data = out[k]
+            return out
+
+    check(cfg.n_layers == stacked.layer_period(cfg),
+          f"{cfg.name}: stacking in place takes one step")
+    stacked.torch = Moving()
+    try:
+        return stacked.stack_params(params, cfg)
+    finally:
+        stacked.torch = torch
+
+
+def _scanned_record(params, cfg, arch: str, steps: int, device,
+                    in_place: bool = False) -> dict:
     """Scan over layers at full width: ``stack_params`` copies the blocks'
-    weights once into the stacked layout; ``prefill_scanned`` of the 2 x
-    512 prompts under ``impl="kernel"`` launches ``kernel`` once per layer
-    and equals ``prefill`` in logits and every cache tensor; then
-    SCAN_STEPS greedy ``decode_step_scanned`` steps equal ``decode_step``'s
-    logits at every step (decode launches once per attention layer a
-    step) and its caches at the end. The contract is bit for bit; where
-    the two part, the record names the layer, the tensor and the weights'
-    alignments, and the gate is SCAN_REL of the largest |logit|. Both
-    paths run in turns (prefill: unscanned, scanned, scanned, unscanned;
-    decode: the order alternates each step); their walls are printed. The
-    stacked copy is freed at the end."""
+    weights once into the stacked layout (``in_place``: moves them there,
+    :func:`_stack_in_place`); ``prefill_scanned`` of the 2 x 512 prompts
+    under ``impl="kernel"`` launches the kernels as ``prefill`` does
+    (:func:`_prefill_launches`) and equals ``prefill`` in logits and every
+    cache tensor; then ``steps`` greedy ``decode_step_scanned`` steps equal
+    ``decode_step``'s logits at every step (decode launches once per
+    attention layer a step) and its caches at the end. The contract is bit
+    for bit; where the two part, the record names the layer, the tensor
+    and the weights' alignments, and the gate is SCAN_REL of the largest
+    |logit|. Both paths run in turns (prefill: unscanned, scanned, scanned,
+    unscanned; decode: the order alternates each step); their walls are
+    printed. The stacked copy is freed at the end."""
     import numpy as np
     import torch
 
@@ -2307,7 +2431,8 @@ def _scanned_record(params, cfg, arch: str, kernel: str, device) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sp = stack_params(params, cfg)
+    sp = _stack_in_place(params, cfg) if in_place \
+        else stack_params(params, cfg)
     torch.cuda.synchronize()
     stack_s = time.perf_counter() - t0
     stacked_bytes = sum(t.numel() * t.element_size() for slot in sp.slots
@@ -2346,7 +2471,7 @@ def _scanned_record(params, cfg, arch: str, kernel: str, device) -> dict:
             prefill_scanned if scanned else prefill,
             (sp, cfg, toks, stack_cache(cache, cfg)) if scanned
             else (params, cfg, toks, cache),
-            scanned, {kernel: cfg.n_layers})
+            scanned, _prefill_launches(cfg))
         walls[label].append(wall)
         first.setdefault(label, out)
         del out
@@ -2369,7 +2494,6 @@ def _scanned_record(params, cfg, arch: str, kernel: str, device) -> dict:
     check(_parting(params, sp, cache, slots, cfg) is None or parting,
           f"{arch} prefill: the caches part where the logits do not")
     per_step = {"decode_attention": n_attn} if n_attn else {}
-    steps = SCAN_STEPS[kernel]
     ms = {"unscanned": 0.0, "scanned": 0.0}
     for step in range(steps):
         tok = torch.argmax(u_logits, -1)
@@ -2388,8 +2512,9 @@ def _scanned_record(params, cfg, arch: str, kernel: str, device) -> dict:
     check(end is None or parting is not None,
           f"{arch} decode: the caches part where the logits do not: {end}")
     rec = {"phase": "serve", "run": "scanned", "arch": arch,
-           "kernel": kernel, "period": sp.period, "n_steps": sp.n_steps,
-           "stacked_bytes": stacked_bytes, "stack_s": stack_s, "batch": 2,
+           "kernel": "+".join(_prefill_launches(cfg)), "period": sp.period,
+           "n_steps": sp.n_steps, "stacked_bytes": stacked_bytes,
+           "stacked_in_place": in_place, "stack_s": stack_s, "batch": 2,
            "prompt": 512, "decode_steps": steps,
            "bitwise": parting is None, "parting": parting,
            "max_rel_logit_err": max(errs),
@@ -2438,11 +2563,11 @@ def _serve_arch(arch: str, n_layers: int, kernel: str, device) -> dict:
     fleet = (_fleet_measured(params, cfg, arch, device)
              if kernel == "flash_attention" else None)
     profile = _engine_profile(params, cfg, arch, device)
-    pre, _ = _prefill_check(params, cfg, arch, kernel, device)
+    pre, _ = _prefill_check(params, cfg, arch, device)
     replay = _replay(params, cfg, arch, streams, device, pre["tol"])
     int8 = (_int8_cache_record(params, cfg, arch, device)
             if kernel == "flash_attention" else None)
-    scanned = _scanned_record(params, cfg, arch, kernel, device)
+    scanned = _scanned_record(params, cfg, arch, SCAN_STEPS[kernel], device)
     del params
     torch.cuda.empty_cache()
     return {"engine": runs, "service": service, "profile": profile,
@@ -3018,8 +3143,8 @@ def _serve_phi(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(3)
     embeds = 0.02 * torch.randn((2, 512, cfg.d_model), generator=gen,
                                 device=device)
-    pre, state = _prefill_check(params, cfg, PHI_ARCH, "flash_attention",
-                                device, embeds=embeds, first_call=True)
+    pre, state = _prefill_check(params, cfg, PHI_ARCH, device,
+                                embeds=embeds, first_call=True)
     run = _forced_steps(
         params, cfg, state,
         lambda j, ref: ref.argmax(-1) if j < PHI_STEPS else None,
@@ -3059,8 +3184,9 @@ def _lane_state(params, cfg, streams: dict, impl: str, device):
     """The engine's lanes after prefill: one lane per request (in rid
     order) of a SERVE_REQUESTS-lane float32 cache, each prompt through
     ``extend`` in one chunk right-padded to its power-of-two bucket, as
-    the engine's orca run prefills it; returns (last logits [B, vocab],
-    cache)."""
+    the engine's orca run prefills it (an attention layer writes its rows
+    through the lane's views, a Mamba layer returns a new state, copied
+    into the lane); returns (last logits [B, vocab], cache)."""
     import torch
 
     from repro_torch.models import extend, init_cache
@@ -3078,7 +3204,8 @@ def _lane_state(params, cfg, streams: dict, impl: str, device):
         out, row = extend(params, cfg, toks, row, impl=impl,
                           length=len(prompt), device=device)
         for layer, r in zip(cache, row):
-            layer["len"][lane:lane + 1] = r["len"]
+            for key, t in r.items():
+                layer[key][lane:lane + 1] = t
         logits.append(out)
     return torch.cat(logits), cache
 
@@ -3137,6 +3264,58 @@ def _route_flips(kernel: list, eager: list, top_k: int) -> list:
                           "expert": e, "margin": min(gaps),
                           "lanes": sorted(got ^ want)})
     return flips
+
+
+def _forced_with_flips(params, cfg, arch: str, state: dict, feed,
+                       device, engine_tokens=None) -> dict:
+    """Teacher forcing of an MoE model from ``state`` (``{"kernel":
+    (logits, cache), "eager": (logits, cache)}``) through
+    :func:`_forced_steps` (``feed(step, eager_logits)`` gives the next
+    tokens [B], None ends the run): logits
+    within LOGIT_REL of the largest eager logit on every lane, except that
+    a lane may part where an MoE choice flipped between the paths at a
+    gate margin under ROUTE_MARGIN (or once it has parted). With
+    ``engine_tokens`` (per lane, the engine's tokens) the eager argmax
+    agreeing with them is counted. Emits and returns the record."""
+    import torch
+
+    n_lanes = state["eager"][0].shape[0]
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
+    parted, flips = set(), []
+    with _recorded_routes() as log:
+        def lanes(step):
+            if step == 0:
+                log.clear()
+                return torch.ones(n_lanes, dtype=torch.bool, device=device)
+            for f in _route_flips(log[-2 * n_moe:-n_moe], log[-n_moe:],
+                                  cfg.moe.top_k):
+                excused = f["margin"] < ROUTE_MARGIN \
+                    or parted & set(f["lanes"])
+                check(excused, f"{arch} step {step}: an MoE choice "
+                      f"flipped at a margin of {f['margin']}: {f}")
+                parted.update(f["lanes"])
+                flips.append({"step": step, **f})
+            keep = torch.ones(n_lanes, dtype=torch.bool)
+            keep[sorted(parted)] = False
+            return keep.to(device)
+
+        run = _forced_steps(params, cfg, state, feed, device, LOGIT_REL,
+                            f"{arch} teacher forcing", lanes=lanes)
+    rec = {"phase": "serve", "run": "teacher_forcing", "arch": arch,
+           "lanes": n_lanes, "tol": LOGIT_REL, "route_margin": ROUTE_MARGIN,
+           "route_flips": flips, "parted_lanes": sorted(parted),
+           "tokens": n_lanes * len(run["refs"]),
+           "ms_per_step": {k: 1e3 * v / max(1, run["steps"])
+                           for k, v in run["wall_s"].items()},
+           **{k: run[k] for k in ("steps", "launches", "dispatches",
+                                  "launches_per_step",
+                                  "max_rel_logit_err")}}
+    if engine_tokens is not None:
+        rec["eager_argmax_equal_engine_token"] = sum(
+            int(int(ref[lane].argmax()) == engine_tokens[lane][j])
+            for j, ref in enumerate(run["refs"]) for lane in range(n_lanes))
+    emit(rec)
+    return rec
 
 
 def _mla_layer_check(params, cfg, cache, tok, device) -> dict:
@@ -3238,46 +3417,12 @@ def _serve_deepseek(device) -> dict:
     gen = [streams[rid][1] for rid in sorted(streams)]
     first = torch.as_tensor([g[0] for g in gen], device=device)
     gate = _mla_layer_check(params, cfg, state["eager"][1], first, device)
-    parted, flips = set(), []
-    with _recorded_routes() as log:
-        def lanes(step):
-            if step == 0:
-                log.clear()
-                return torch.ones(SERVE_REQUESTS, dtype=torch.bool,
-                                  device=device)
-            n = cfg.n_layers
-            for f in _route_flips(log[-2 * n:-n], log[-n:], cfg.moe.top_k):
-                excused = f["margin"] < ROUTE_MARGIN \
-                    or parted & set(f["lanes"])
-                check(excused, f"{DEEPSEEK_ARCH} step {step}: an MoE choice "
-                      f"flipped at a margin of {f['margin']}: {f}")
-                parted.update(f["lanes"])
-                flips.append({"step": step, **f})
-            keep = torch.ones(SERVE_REQUESTS, dtype=torch.bool)
-            keep[sorted(parted)] = False
-            return keep.to(device)
-
-        run = _forced_steps(
-            params, cfg, state,
-            lambda j, ref: (torch.as_tensor([g[j] for g in gen],
-                                            device=device)
-                            if j + 1 < SERVE_NEW else None),
-            device, LOGIT_REL, f"{DEEPSEEK_ARCH} replay", lanes=lanes)
-    agree = sum(int(int(ref[lane].argmax()) == gen[lane][j])
-                for j, ref in enumerate(run["refs"])
-                for lane in range(SERVE_REQUESTS))
-    replay = {"phase": "serve", "run": "teacher_forcing",
-              "arch": DEEPSEEK_ARCH, "lanes": SERVE_REQUESTS,
-              "tol": LOGIT_REL, "route_margin": ROUTE_MARGIN,
-              "route_flips": flips, "parted_lanes": sorted(parted),
-              "eager_argmax_equal_engine_token": agree,
-              "tokens": SERVE_REQUESTS * len(run["refs"]),
-              "ms_per_step": {k: 1e3 * v / max(1, run["steps"])
-                              for k, v in run["wall_s"].items()},
-              **{k: run[k] for k in ("steps", "launches", "dispatches",
-                                     "launches_per_step",
-                                     "max_rel_logit_err")}}
-    emit(replay)
+    feed = [torch.as_tensor([g[j] for g in gen], device=device)
+            for j in range(SERVE_NEW)]
+    replay = _forced_with_flips(
+        params, cfg, DEEPSEEK_ARCH, state,
+        lambda j, ref: feed[j] if j + 1 < SERVE_NEW else None, device,
+        engine_tokens=gen)
     del state
     res, svc, service = _service_run(params, cfg, DEEPSEEK_ARCH, "orca",
                                      device)
@@ -3294,6 +3439,110 @@ def _serve_deepseek(device) -> dict:
     torch.cuda.empty_cache()
     return {"params": n_params, "engine": engine, "profile": profile,
             "layer_gate": gate, "replay": replay, "service": service,
+            "launches_per_decode_iteration": per_iter}
+
+
+def _seed_decay(params, seed: int = 0) -> None:
+    """Each Mamba layer's ``a_log`` and ``dt_bias`` drawn from ``seed`` in
+    place of the initialiser's zeros, so that no two heads share a decay
+    (a head indexing fault of the SSD kernel then shows)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in params.blocks:
+            if hasattr(blk, "mamba"):
+                h = blk.mamba.a_log.shape[0]
+                blk.mamba.a_log.copy_(torch.randn(h, generator=gen) * 0.5)
+                blk.mamba.dt_bias.copy_(torch.randn(h, generator=gen) * 0.5
+                                        - 1.0)
+
+
+def _serve_jamba(device) -> dict:
+    """jamba-v0.1-52b (hybrid) at full width, its depth cut from 32 layers
+    to JAMBA_LAYERS (one period: Mamba-2 at layers 0-3 and 5-7 with d_inner
+    8,192 over 64 heads of P 128, N 16; GQA attention at layer 4, Hq 32,
+    Hkv 8, D 128; MoE of 16 experts of 14,336, top 2, at the odd layers,
+    dense gated FFNs of 14,336 at the even ones), seeded random float32
+    weights with seeded Mamba decay: the 2 x 512 ``prefill`` through 1
+    flash and 7 SSD launches against ``impl="eager"`` and ``extend``, each
+    Mamba layer's SSD and the attention layer's flash held on the layer's
+    own input (:func:`_prefill_check`); JAMBA_STEPS greedy decode steps
+    from it, teacher-forced through both impls (1 decode launch a step); one
+    orca engine run (1 decode launch per decode iteration) and one more
+    under ``torch.profiler``; the engine's streams teacher-forced at its 8
+    lanes through both impls; then scan over layers at period 8, the
+    weights moved into the stacked layout (two copies do not fit the
+    card). Teacher-forced lanes may part only at a recorded MoE flip under
+    ROUTE_MARGIN. The weights are freed at the end; the peak of
+    ``torch.cuda.max_memory_allocated`` is recorded."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import init_model, param_count
+
+    full = get(JAMBA_ARCH).model
+    check(full.n_layers == JAMBA_FULL_LAYERS and full.mixer == "hybrid"
+          and (full.attn_every, full.moe_every) == (8, 2)
+          and (full.n_heads, full.n_kv_heads, full.head_dim) == (32, 8, 128)
+          and full.d_inner // full.mamba_heads == 128
+          and full.ssm_state == 16 and full.moe.n_routed == 16
+          and full.moe.top_k == 2 and full.moe.d_expert == 14_336,
+          f"{JAMBA_ARCH}: {full}")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    kinds = [(cfg.mixer_kind(i), cfg.ffn_kind(i))
+             for i in range(cfg.n_layers)]
+    check([i for i, k in enumerate(kinds) if k[0] == "attn"] == [4]
+          and [i for i, k in enumerate(kinds) if k[1] == "moe"]
+          == [1, 3, 5, 7], f"{JAMBA_ARCH} layer kinds {kinds}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    params = init_model(cfg, seed=0, device=device)
+    _seed_decay(params)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    check(n_params == JAMBA_PARAMS, f"{JAMBA_ARCH}: {n_params} parameters")
+    emit({"phase": "serve", "run": "init", "arch": JAMBA_ARCH,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "layers": [f"{m}+{f}" for m, f in kinds], "decay": "seeded",
+          "params": n_params, "bytes": 4 * n_params,
+          "seconds": time.perf_counter() - t_run})
+    pre, state = _prefill_check(params, cfg, JAMBA_ARCH, device,
+                                first_call=True)
+    decode = _forced_with_flips(
+        params, cfg, JAMBA_ARCH, state,
+        lambda j, ref: ref.argmax(-1) if j < JAMBA_STEPS else None, device)
+    del state
+    engine, streams = _engine_run(params, cfg, JAMBA_ARCH, "orca", device)
+    per_iter = engine["launches"]["decode_attention"] \
+        / engine["decode_iterations"]
+    check(per_iter == 1, f"{JAMBA_ARCH}: {per_iter} decode launches per "
+          f"decode iteration")
+    profile = _engine_profile(params, cfg, JAMBA_ARCH, device)
+    state = {impl: _lane_state(params, cfg, streams, impl, device)
+             for impl in ("kernel", "eager")}
+    gen = [streams[rid][1] for rid in sorted(streams)]
+    feed = [torch.as_tensor([g[j] for g in gen], device=device)
+            for j in range(SERVE_NEW)]
+    replay = _forced_with_flips(
+        params, cfg, JAMBA_ARCH, state,
+        lambda j, ref: feed[j] if j + 1 < SERVE_NEW else None, device,
+        engine_tokens=gen)
+    del state
+    scanned = _scanned_record(params, cfg, JAMBA_ARCH, SCAN_STEPS["ssd_scan"],
+                              device, in_place=True)
+    del params
+    torch.cuda.empty_cache()
+    mem = {"phase": "serve", "run": "memory", "arch": JAMBA_ARCH,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "run_s": time.perf_counter() - t_run, "card": card_line()}
+    emit(mem)
+    return {"params": n_params, "prefill": pre, "decode": decode,
+            "engine": engine, "profile": profile, "replay": replay,
+            "scanned": scanned, "memory": mem,
             "launches_per_decode_iteration": per_iter}
 
 
@@ -3498,8 +3747,10 @@ def phase_serve(device) -> dict:
     of ``extend``, decode through the one-step recurrence; only
     ``prefill`` reaches the SSD kernel), then of phi-3-vision-4.2b through
     ``inputs_embeds``, then of deepseek-v2-236b (MLA and MoE) at
-    DEEPSEEK_LAYERS layers, then of whisper-tiny (encoder-decoder). The
-    launch counts of the result line sum every run of the path: decode
+    DEEPSEEK_LAYERS layers, then of whisper-tiny (encoder-decoder), then of
+    jamba-v0.1-52b (hybrid) at JAMBA_LAYERS layers. The launch counts of
+    the result line sum every run of the path (jamba's prefill, decode
+    steps, engine run, replay and scanned runs besides): decode
     over llama's engine runs, the measured fleet's serves, llama's scanned
     decode steps, phi-3's decode steps and kernel engine run,
     deepseek-v2's engine run, replay and service, and whisper's decode
@@ -3513,9 +3764,10 @@ def phase_serve(device) -> dict:
     phi = _serve_phi(device)
     deepseek = _serve_deepseek(device)
     whisper = _serve_whisper(device)
+    jamba = _serve_jamba(device)
     fleet = llama["fleet"]
     return {"llama": llama, "llama_bf16": bf16, "mamba": mamba, "phi": phi,
-            "deepseek": deepseek, "whisper": whisper,
+            "deepseek": deepseek, "whisper": whisper, "jamba": jamba,
             "launches": {
                 "decode_attention":
                     sum(r["launches"]["decode_attention"]
@@ -3527,17 +3779,22 @@ def phase_serve(device) -> dict:
                     + sum(deepseek[k]["launches"]["decode_attention"]
                           for k in ("engine", "replay", "service"))
                     + llama["scanned"]["launches"]["decode_attention"]
-                    + whisper["launches"]["decode_attention"],
+                    + whisper["launches"]["decode_attention"]
+                    + sum(jamba[k]["launches"]["decode_attention"]
+                          for k in ("decode", "engine", "replay", "scanned")),
                 "flash_attention":
                     llama["prefill"]["launches"]["flash_attention"]
                     + phi["prefill"]["launches"]["flash_attention"]
                     + llama["int8_cache"]["launches"]["flash_attention"]
                     + llama["scanned"]["launches"]["flash_attention"]
-                    + whisper["launches"]["flash_attention"],
+                    + whisper["launches"]["flash_attention"]
+                    + sum(jamba[k]["launches"]["flash_attention"]
+                          for k in ("prefill", "scanned")),
                 "flash_attention_bf16":
                     bf16["prefill"]["launches"]["flash_attention_bf16"],
-                "ssd_scan": mamba["prefill"]["launches"]["ssd_scan"]
-                + mamba["scanned"]["launches"]["ssd_scan"]}}
+                "ssd_scan": sum(r[k]["launches"]["ssd_scan"]
+                                for r in (mamba, jamba)
+                                for k in ("prefill", "scanned"))}}
 
 
 def _train_grad_check(cfg, tcfg, tokens, device) -> dict:

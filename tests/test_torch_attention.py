@@ -352,7 +352,13 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (2, 8, 1, 200, 333, 96, True), (1, 3, 1, 9, 9, 128, True),
     (1, 24, 8, 13, 13, 96, False), (1, 4, 4, 150, 150, 32, False),
     (1, 16, 2, 5, 70, 64, True), (1, 3, 3, 250, 250, 128, False),
-    (2, 32, 32, 512, 512, 96, True)]      # phi-3-vision's prefill: D 96, rep 1
+    (2, 32, 32, 512, 512, 96, True),      # phi-3-vision's prefill: D 96, rep 1
+    (2, 32, 8, 512, 512, 128, True),      # jamba-v0.1-52b's prefill: rep 4
+    # the prefill heads of the configurations no whole-model card run
+    # covers: glm4-9b (rep 16), qwen2-1.5b (rep 6), deepseek-moe-16b and
+    # qwen1.5-0.5b (rep 1)
+    (2, 32, 2, 512, 512, 128, True), (2, 12, 2, 512, 512, 128, True),
+    (2, 16, 16, 512, 512, 128, True), (2, 16, 16, 512, 512, 64, True)]
 
 
 @pytest.mark.cuda
@@ -519,7 +525,15 @@ DECODE_CUDA_CASES = [c + (None,) for c in DECODE_CASES] + [
     (8, 24, 8, 1024, 128, "edges"), (7, 8, 2, 8192, 64, "edges"),
     (5, 6, 2, 20, 32, "edges"), (6, 4, 1, 300, 64, "edges"),
     (None, 32, 32, 8192, 32, "edges"),
-    (8, 32, 32, 1024, 96, None)]          # phi-3-vision's decode: D 96, rep 1
+    (8, 32, 32, 1024, 96, None),          # phi-3-vision's decode: D 96, rep 1
+    # jamba-v0.1-52b's decode (Hq 32, Hkv 8, D 128), then glm4-9b's,
+    # qwen2-1.5b's, deepseek-moe-16b's and qwen1.5-0.5b's, each with seeded
+    # lengths and at the split edges
+    (8, 32, 8, 1024, 128, None), (8, 32, 8, 1024, 128, "edges"),
+    (8, 32, 2, 1024, 128, None), (8, 32, 2, 1024, 128, "edges"),
+    (8, 12, 2, 1024, 128, None), (8, 12, 2, 1024, 128, "edges"),
+    (8, 16, 16, 1024, 128, None), (8, 16, 16, 1024, 128, "edges"),
+    (8, 16, 16, 1024, 64, None), (8, 16, 16, 1024, 64, "edges")]
 # MLA's absorbed decode, k and v one tensor (the latent): deepseek-v2's
 # 128 query heads over one latent head at D 576 (32 head groups of 4) at
 # S 1024, S 8192 and the split edges; a rep that no head group divides

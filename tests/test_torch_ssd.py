@@ -188,6 +188,11 @@ EDGES = [(2, 1, 8, 64, 128), (2, 63, 8, 64, 128), (2, 64, 8, 64, 128),
          (3, 130, 8, 64, 128)]
 
 
+# jamba-v0.1-52b's Mamba heads (d_inner 8,192 over 64 heads: P 128, N 16):
+# its 2 x 512 prefill, a ragged L and a chunk edge
+JAMBA = [(2, 512, 64, 128, 16), (2, 700, 64, 128, 16), (1, 65, 64, 128, 16)]
+
+
 def _fused_inputs(device, b, l, h, p, n, dtype, seed):
     """x, dt, a, B, C with x, B and C slices of one fused projection."""
     rng = np.random.default_rng(seed)
@@ -207,7 +212,7 @@ def _fused_inputs(device, b, l, h, p, n, dtype, seed):
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("b,l,h,p,n", [c[:5] for c in CASES]
                          + [(2, 512, 80, 64, 128), (1, 700, 80, 64, 128)]
-                         + EDGES)
+                         + EDGES + JAMBA)
 def test_cuda_matches_plain(cuda_device, b, l, h, p, n, dtype, tol):
     """The kernels against their plain version, within ``tol`` of the
     largest value; x, B and C are slices of one fused projection, as the
@@ -262,8 +267,23 @@ def test_plan_at_the_prefill_shape():
     assert (bf16.state_smem, bf16.y_smem) == (28_160, 54_528)
 
 
-@pytest.mark.parametrize("b,l,h,p,n", EDGES + [(2, 4096, 80, 64, 128),
-                                              (1, 0, 2, 8, 16)])
+def test_plan_at_jambas_prefill_shape():
+    """jamba-v0.1-52b's 2 x 512 prefill (H 64, P 128, N 16): the state
+    blocks take 4 column tiles of 32 and one state-row tile of 64 rows, 48
+    of them past N (dead); the y blocks two column tiles of 64."""
+    b, l, h, p, n = 2, 512, 64, 128, 16
+    for item in (4, 2):
+        plan = ss.ssd_plan(b, l, h, p, n, item)
+        assert (plan.chunks, plan.p_tiles, plan.s_tiles, plan.n_tiles) == \
+            (8, 2, 4, 1)
+        assert plan.n_tiles * 64 - n == 48
+        assert plan.state_blocks == b * h * 4 == 512
+        assert plan.y_blocks == b * plan.chunks * h * 2 == 2048
+        assert plan.cb_blocks == b * plan.chunks == 16
+
+
+@pytest.mark.parametrize("b,l,h,p,n", EDGES + JAMBA + [(2, 4096, 80, 64, 128),
+                                                      (1, 0, 2, 8, 16)])
 @pytest.mark.parametrize("item", [4, 2])
 def test_plan_tiles_and_workspace(b, l, h, p, n, item):
     """Tile counts cover every position, column and state row once; the
