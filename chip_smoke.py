@@ -213,7 +213,28 @@ Phases — any failure raises and the script exits non-zero:
            weights moved into the stacked layout at period 8 (two copies
            do not fit the card) and ``prefill_scanned`` and 4 scanned
            decode steps bit for bit the unscanned ones; the peak of
-           ``torch.cuda.max_memory_allocated``;
+           ``torch.cuda.max_memory_allocated``. Last, the three
+           configurations run whole (WHOLE: full width, full depth,
+           seeded random float32 weights): glm4-9b (40 layers, 9.40 B
+           parameters, GQA rep 16), qwen2-1.5b (28 layers, 1.54 B, rep 6,
+           its QKV biases seeded) and deepseek-moe-16b (28 layers, 16.88 B,
+           67.5 GB: MHA and 64 routed experts of 1,408, top 6, 2 shared,
+           on every layer), each parameter count held to the port's model
+           on the meta device, the card's free memory read before the init
+           (the replay's lane caches sized to what the requests need if
+           the reckoned peak does not fit at SERVE_MAX_LEN): the 2 x 512
+           ``prefill`` through one flash launch per layer against
+           ``impl="eager"`` and ``extend`` within LOGIT_REL; 16 greedy
+           decode steps from it teacher-forced through both impls (one
+           decode launch per layer a step) within LOGIT_REL, with the
+           step's wall beside the bound of reading the weights once; one
+           orca engine run (one decode launch per layer and decode
+           iteration), one profiled (idle share), and its streams
+           teacher-forced at its 8 lanes; a lane may part only at a
+           printed MoE flip under ROUTE_MARGIN (a dense model's never);
+           qwen2-1.5b also through one orca ``AsyncLLMService`` run, its
+           schedule the plan's bit for bit; each run's peak of
+           ``torch.cuda.max_memory_allocated`` with the card named;
 5. train   training at llama3.2-3b's full width (3.21 B float32
            parameters, weights, gradients and AdamW's moments ~51 GB):
            first one step's gradients at 2 of its 28 layers held to a
@@ -284,7 +305,9 @@ Phases — any failure raises and the script exits non-zero:
            bidirectional) and cross-attention at decode (B 8, Lq 1,
            Lk 1,500) and jamba's (B 2, L 512, Hq 32, Hkv 8, D 128),
            decode also at whisper's D 64, rep 1, S 128 and at jamba's
-           Hq 32, Hkv 8, D 128, B 8, S 1024
+           Hq 32, Hkv 8, D 128, B 8, S 1024; decode (B 8, S 1024) and
+           flash (B 2, L 512 causal) at glm4-9b's Hq 32, Hkv 2 and at
+           deepseek-moe-16b's Hq = Hkv = 16, D 128
            (float32 through the FMA kernel, in turns with the first float32
            kernel as well: first, new, new, first; bfloat16 through the
            tensor-core kernel; each kernel's device time per call from
@@ -560,11 +583,32 @@ DECODE_PARITY += [shape for hq, hkv, d in UNRUN_HEADS.values()
                                 (8, hq, hkv, 1024, d, "edges"))]
 FLASH_PARITY += [(2, hq, hkv, 512, 512, d, True)
                  for hq, hkv, d in UNRUN_HEADS.values()]
+# the configurations the serve phase runs whole (full width, full depth,
+# seeded random float32 weights, seeded QKV biases where the config has
+# them): arch -> (layers, parameters counted from the port's Transformer
+# on the meta device); WHOLE_STEPS teacher-forced decode steps after each
+# prefill; the archs in WHOLE_SERVICE also serve through the paged
+# service. The engine-lane replay's two caches hold SERVE_MAX_LEN rows
+# unless the run's reckoned peak (_whole_peak) and WHOLE_HEADROOM exceed
+# the card's free memory; then WHOLE_LANE_ROWS, what the requests need (the
+# longest prompt, 512, its own bucket, and SERVE_NEW tokens)
+WHOLE = {"glm4-9b": (40, 9_399_767_040), "qwen2-1.5b": (28, 1_543_714_304),
+         "deepseek-moe-16b": (28, 16_879_568_896)}
+WHOLE_STEPS = 16
+WHOLE_SERVICE = ("qwen2-1.5b",)
+WHOLE_HEADROOM = 2e9           # bytes beside the reckoned peak
+WHOLE_LANE_ROWS = 512 + SERVE_NEW
 DECODE_TIMES = [DECODE_MAIN, (8, 24, 8, 8192, 128), DECODE_PHI,
                 DECODE_WHISPER, DECODE_JAMBA]
 FLASH_TIMES = [FLASH_MAIN, (1, 24, 8, 100, 512, 128, True),
                FLASH_BF16_MAIN, FLASH_PHI, FLASH_WHISPER_ENC,
                FLASH_WHISPER_CROSS, FLASH_JAMBA]
+# glm4-9b's and deepseek-moe-16b's heads on their whole-model paths: decode
+# at the engine's 8 lanes over 1,024 rows, flash at the 2 x 512 prefill
+DECODE_TIMES += [(8, hq, hkv, 1024, d) for hq, hkv, d in
+                 (UNRUN_HEADS["glm4-9b"], UNRUN_HEADS["deepseek-moe-16b"])]
+FLASH_TIMES += [(2, hq, hkv, 512, 512, d, True) for hq, hkv, d in
+                (UNRUN_HEADS["glm4-9b"], UNRUN_HEADS["deepseek-moe-16b"])]
 PARITY_POPS = (64, 2048)
 TIME_POPS = (64, 512, 2048, 4096)
 # mapping-eval edge shapes (B, P, T, W, C): T not a multiple of 4 (4-byte
@@ -2120,9 +2164,13 @@ def _prefill_check(params, cfg, arch: str, device, embeds=None,
     layer by layer. With ``embeds`` (``[2, L,
     d_model]``) the prompts are embeddings passed as ``inputs_embeds``, and
     ``extend``, which takes tokens only, is left out. With ``first_call``
-    each path first makes one call whose wall is recorded apart. Returns
-    the record, whose ``tol`` the replay uses, and each path's (logits,
-    cache)."""
+    each path first makes one call whose wall is recorded apart. In an MoE
+    model the reference paths take the kernel path's routing where the two
+    differ (:func:`_routes_forced`), each such choice recorded and held to
+    a gate margin under ROUTE_MARGIN: a near tie flipped by float32
+    rounding would otherwise part a token's hidden state, and through
+    attention its whole lane, from the other path. Returns the record,
+    whose ``tol`` the replay uses, and each path's (logits, cache)."""
     import numpy as np
     import torch
 
@@ -2138,23 +2186,33 @@ def _prefill_check(params, cfg, arch: str, device, embeds=None,
         args, kw, labels = (None,), {"inputs_embeds": embeds}, ("kernel",
                                                                 "eager")
     prompt = args[0].shape[1] if embeds is None else embeds.shape[1]
-    runs, first = {}, {}
+    has_moe = any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
+    runs, first, routes, forced = {}, {}, [], {}
     for label in labels:
         for cold in (True, False) if first_call else (False,):
             cache = init_cache(cfg, 2, SERVE_MAX_LEN, torch.float32, device)
+            routing = contextlib.nullcontext()
+            if has_moe and not cold and label == "kernel":
+                routing = _recorded_routes()
+            elif has_moe and not cold:
+                forced[label] = []
+                routing = _routes_forced(routes, forced[label])
             torch.cuda.synchronize()
             if label == "kernel" and not cold:
                 ops.clear_dispatch_stats()         # counts to 0 just before
                 ops.reset_launch_counts()
             t0 = time.perf_counter()
-            if label == "extend":
-                logits, cache = extend(params, cfg, *args, cache,
-                                       impl="eager", device=device)
-            else:
-                logits, cache = prefill(params, cfg, *args, cache,
-                                        impl=label, device=device, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with routing as log:
+                if label == "extend":
+                    logits, cache = extend(params, cfg, *args, cache,
+                                           impl="eager", device=device)
+                else:
+                    logits, cache = prefill(params, cfg, *args, cache,
+                                            impl=label, device=device, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if label == "kernel" and log is not None:
+                routes = log
             if cold:
                 first[label] = wall
                 continue
@@ -2163,6 +2221,12 @@ def _prefill_check(params, cfg, arch: str, device, embeds=None,
             runs[label] = (logits, cache, wall)
     want = _prefill_launches(cfg)
     _only(launches, disp, want, f"{arch} prefill")
+    for label, flips in forced.items():
+        for f in flips:
+            check(f["margin"] < ROUTE_MARGIN, f"{arch} prefill ({label}): "
+                  f"an MoE choice differs from the kernel path's at a "
+                  f"margin of {f['margin']}: {f}")
+            f["lane_of_tokens"] = sorted({t // prompt for t in f["lanes"]})
     tol, layers = LOGIT_REL, None
     if "ssd_scan" in want:
         layers = _mamba_layer_check(params, cfg, args[0], device)
@@ -2182,7 +2246,8 @@ def _prefill_check(params, cfg, arch: str, device, embeds=None,
            "tokens_per_s": {label: 2 * prompt / runs[label][2]
                             for label in runs},
            "launches": launches, "dispatches": disp, "vs": errs,
-           "tol": tol, "per_layer": layers}
+           "tol": tol, "per_layer": layers,
+           "routes_forced": forced if has_moe else None}
     emit(rec)
     return rec, {label: runs[label][:2] for label in ("kernel", "eager")}
 
@@ -3180,19 +3245,19 @@ def _serve_phi(device) -> dict:
             "engine": engine, "engine_eager": eager, "tokens": cmp}
 
 
-def _lane_state(params, cfg, streams: dict, impl: str, device):
+def _lane_state(params, cfg, streams: dict, impl: str, device,
+                rows: int = SERVE_MAX_LEN):
     """The engine's lanes after prefill: one lane per request (in rid
-    order) of a SERVE_REQUESTS-lane float32 cache, each prompt through
-    ``extend`` in one chunk right-padded to its power-of-two bucket, as
-    the engine's orca run prefills it (an attention layer writes its rows
-    through the lane's views, a Mamba layer returns a new state, copied
-    into the lane); returns (last logits [B, vocab], cache)."""
+    order) of a SERVE_REQUESTS-lane float32 cache of ``rows`` rows, each
+    prompt through ``extend`` in one chunk right-padded to its power-of-two
+    bucket, as the engine's orca run prefills it (an attention layer writes
+    its rows through the lane's views, a Mamba layer returns a new state,
+    copied into the lane); returns (last logits [B, vocab], cache)."""
     import torch
 
     from repro_torch.models import extend, init_cache
 
-    cache = init_cache(cfg, SERVE_REQUESTS, SERVE_MAX_LEN, torch.float32,
-                       device)
+    cache = init_cache(cfg, SERVE_REQUESTS, rows, torch.float32, device)
     logits = []
     for lane, rid in enumerate(sorted(streams)):
         prompt = streams[rid][0]
@@ -3266,15 +3331,56 @@ def _route_flips(kernel: list, eager: list, top_k: int) -> list:
     return flips
 
 
+@contextlib.contextmanager
+def _routes_forced(recorded: list, flips: list):
+    """While the block runs, each call of the port's MoE ``route`` takes
+    the choices of the same call of ``recorded`` (another path's routings,
+    in call order, as :func:`_recorded_routes` gives them): each token's
+    top-k experts (renormalised over this path's own router gates) and
+    each expert's chosen tokens, with this path's gates at those choices.
+    Where the two paths chose alike this is the call's own routing bit for
+    bit, so the block adds no sync. On leaving the block, each choice that
+    differed (:func:`_route_flips`, its margin the smaller of the two
+    paths') is appended to ``flips`` with the call's index as its layer."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def forced(p, xt, cfg, capacity_factor=None):
+        own = route(p, xt, cfg, capacity_factor)
+        want = recorded[len(calls)]
+        calls.append((want, own, cfg.moe.top_k))
+        gates = own[0]
+        masked = torch.where(want[1] > 0, gates, 0.0)
+        denom = masked.sum(dim=-1, keepdim=True)
+        masked = masked / torch.where(denom == 0, 1.0, denom)
+        idx = want[3]
+        return gates, masked, masked.T.gather(1, idx), idx
+
+    moe.route = forced
+    try:
+        yield None
+    finally:
+        moe.route = route
+        for layer, (want, own, top_k) in enumerate(calls):
+            if not (torch.equal(want[1] > 0, own[1] > 0)
+                    and torch.equal(want[3], own[3])):
+                flips.extend({**f, "layer": layer}
+                             for f in _route_flips([want], [own], top_k))
+
+
 def _forced_with_flips(params, cfg, arch: str, state: dict, feed,
                        device, engine_tokens=None) -> dict:
-    """Teacher forcing of an MoE model from ``state`` (``{"kernel":
+    """Teacher forcing of a model from ``state`` (``{"kernel":
     (logits, cache), "eager": (logits, cache)}``) through
     :func:`_forced_steps` (``feed(step, eager_logits)`` gives the next
     tokens [B], None ends the run): logits
     within LOGIT_REL of the largest eager logit on every lane, except that
-    a lane may part where an MoE choice flipped between the paths at a
-    gate margin under ROUTE_MARGIN (or once it has parted). With
+    a lane of an MoE model may part where an MoE choice flipped between the
+    paths at a gate margin under ROUTE_MARGIN (or once it has parted); a
+    dense model has no routing, so none of its lanes may part. With
     ``engine_tokens`` (per lane, the engine's tokens) the eager argmax
     agreeing with them is counted. Emits and returns the record."""
     import torch
@@ -3288,7 +3394,7 @@ def _forced_with_flips(params, cfg, arch: str, state: dict, feed,
                 log.clear()
                 return torch.ones(n_lanes, dtype=torch.bool, device=device)
             for f in _route_flips(log[-2 * n_moe:-n_moe], log[-n_moe:],
-                                  cfg.moe.top_k):
+                                  cfg.moe.top_k) if n_moe else ():
                 excused = f["margin"] < ROUTE_MARGIN \
                     or parted & set(f["lanes"])
                 check(excused, f"{arch} step {step}: an MoE choice "
@@ -3546,6 +3652,191 @@ def _serve_jamba(device) -> dict:
             "launches_per_decode_iteration": per_iter}
 
 
+def _meta_sizes(cfg) -> tuple[int, int]:
+    """(parameters, elements of the largest tensor) of the port's model for
+    ``cfg``, built on the meta device (nothing is allocated)."""
+    from repro_torch.models import Transformer, param_count
+
+    meta = Transformer(cfg, device="meta")
+    return param_count(meta), max(p.numel() for p in meta.parameters())
+
+
+def _whole_peak(cfg, lane_rows: int) -> int:
+    """The reckoned float32 peak bytes of a whole-model run: the weights
+    and the larger of the init's temporaries (the largest tensor's float32
+    draw and its scaled copy) and the engine-lane replay's two
+    SERVE_REQUESTS-lane K/V caches of ``lane_rows`` rows, which never
+    coincide. Activations are left to WHOLE_HEADROOM."""
+    n_params, largest = _meta_sizes(cfg)
+    cache = (4 * 2 * SERVE_REQUESTS * lane_rows * cfg.n_layers
+             * cfg.n_kv_heads * cfg.head_dim)
+    return 4 * n_params + max(2 * 4 * largest, 2 * cache)
+
+
+def _seed_qkv_bias(params, seed: int = 0) -> None:
+    """Each attention projection's bias (where the config has one) drawn
+    from ``seed``, N(0, 0.25), in place of the initialiser's zeros, so
+    that the bias reaches the kernels' q, k and v."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in params.blocks:
+            for name in ("wq", "wk", "wv"):
+                b = getattr(blk.attn, name).b
+                if b is not None:
+                    b.copy_(0.5 * torch.randn(b.shape, generator=gen))
+
+
+def _serve_whole(arch: str, device) -> dict:
+    """``arch`` (a WHOLE config) at full width and full depth with seeded
+    random float32 weights (and seeded QKV biases): the 2 x 512
+    ``prefill`` through one flash launch per layer against ``impl="eager"``
+    and ``extend`` (:func:`_prefill_check`); WHOLE_STEPS greedy decode
+    steps from it, teacher-forced through both impls (one decode launch per
+    layer a step); one orca engine run (one decode launch per layer and
+    decode iteration) and one more under ``torch.profiler``; the engine's
+    streams teacher-forced at its 8 lanes through both impls; for the
+    archs of WHOLE_SERVICE one orca ``AsyncLLMService`` run, its schedule
+    equal to the plan bit for bit. Teacher-forced lanes may part only at a
+    recorded MoE flip under ROUTE_MARGIN (a dense model's never). The
+    free memory is read before the init and the replay's lane caches sized
+    by it (WHOLE_LANE_ROWS where SERVE_MAX_LEN does not fit); the peak of
+    ``torch.cuda.max_memory_allocated`` is recorded with the card. The
+    weights are freed at the end."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import init_model, param_count
+
+    n_layers, want_params = WHOLE[arch]
+    cfg = get(arch).model
+    check(cfg.n_layers == n_layers and (cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.head_dim) == UNRUN_HEADS[arch],
+          f"{arch}: {cfg}")
+    meta_params, _ = _meta_sizes(cfg)
+    check(meta_params == want_params, f"{arch}: {meta_params} parameters "
+          f"on the meta device, expected {want_params}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    held = {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
+    rows = SERVE_MAX_LEN
+    if _whole_peak(cfg, rows) + WHOLE_HEADROOM > free:
+        rows = WHOLE_LANE_ROWS
+    peak = _whole_peak(cfg, rows)
+    check(peak + WHOLE_HEADROOM <= free, f"{arch}: a reckoned peak of "
+          f"{peak} bytes does not fit {free} free bytes")
+    t_run = time.perf_counter()
+    params = init_model(cfg, seed=0, device=device)
+    if cfg.qkv_bias:
+        _seed_qkv_bias(params)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    check(n_params == want_params, f"{arch}: {n_params} parameters")
+    init = {"phase": "serve", "run": "init", "arch": arch,
+            "reduced": None, "layers": cfg.n_layers,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "gqa_rep": cfg.n_heads // cfg.n_kv_heads,
+            "qkv_bias": "seeded" if cfg.qkv_bias else None,
+            "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+            "params": n_params, "bytes": 4 * n_params,
+            "torch_bytes_before": held,
+            "free_bytes_before": free, "total_bytes": total,
+            "reckoned_peak_bytes": peak, "lane_rows": rows,
+            "seconds": time.perf_counter() - t_run}
+    emit(init)
+    stage_s, t_stage = {"init": init["seconds"]}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        stage_s[name] = time.perf_counter() - t_stage
+        t_stage = time.perf_counter()
+
+    pre, state = _prefill_check(params, cfg, arch, device, first_call=True)
+    stage("prefill")
+    decode = _forced_with_flips(
+        params, cfg, arch, state,
+        lambda j, ref: ref.argmax(-1) if j < WHOLE_STEPS else None, device)
+    del state
+    stage("decode")
+    # a decode step reads every weight once but the untied embedding
+    # table, of which it gathers one row a lane
+    read = 4 * (n_params - (0 if cfg.tie_embeddings
+                            else params.embed.e.numel()))
+    emit({"phase": "serve", "run": "decode_bound", "arch": arch,
+          "batch": 2, "ms_per_step": decode["ms_per_step"],
+          "weight_read_bytes": read,
+          "weight_read_bound_ms": 1e3 * read / HBM_BYTES_PER_S,
+          "card": card_line()})
+    engine, streams = _engine_run(params, cfg, arch, "orca", device)
+    stage("engine")
+    per_iter = engine["launches"]["decode_attention"] \
+        / engine["decode_iterations"]
+    check(per_iter == cfg.n_layers, f"{arch}: {per_iter} decode launches "
+          f"per decode iteration")
+    profile = _engine_profile(params, cfg, arch, device)
+    stage("profile")
+    # the lanes' prompts through extend, the eager path on the kernel
+    # path's routing where they differ (as in _prefill_check)
+    with _recorded_routes() as routes:
+        state = {"kernel": _lane_state(params, cfg, streams, "kernel",
+                                       device, rows)}
+    lane_forced = []
+    with _routes_forced(routes, lane_forced) if cfg.moe else \
+            contextlib.nullcontext():
+        state["eager"] = _lane_state(params, cfg, streams, "eager", device,
+                                     rows)
+    del routes
+    for f in lane_forced:
+        check(f["margin"] < ROUTE_MARGIN, f"{arch} lane prefill: an MoE "
+              f"choice differs from the kernel path's at a margin of "
+              f"{f['margin']}: {f}")
+    gen = [streams[rid][1] for rid in sorted(streams)]
+    feed = [torch.as_tensor([g[j] for g in gen], device=device)
+            for j in range(SERVE_NEW)]
+    replay = _forced_with_flips(
+        params, cfg, arch, state,
+        lambda j, ref: feed[j] if j + 1 < SERVE_NEW else None, device,
+        engine_tokens=gen)
+    replay["lane_routes_forced"] = lane_forced
+    if cfg.moe:
+        emit({"phase": "serve", "run": "lane_routes_forced", "arch": arch,
+              "route_margin": ROUTE_MARGIN, "forced": lane_forced})
+    del state
+    stage("replay")
+    service = None
+    if arch in WHOLE_SERVICE:
+        res, svc, service = _service_run(params, cfg, arch, "orca", device)
+        del svc
+        _plan_parity(res, "orca", cfg.vocab)
+        service["plan_parity"] = "bitwise"
+        service["launches_per_decode_iteration"] = \
+            service["launches"]["decode_attention"] \
+            / service["decode_iterations"]
+        check(service["launches_per_decode_iteration"] == cfg.n_layers,
+              f"{arch} service: {service['launches_per_decode_iteration']} "
+              f"decode launches per decode iteration")
+        emit(service)
+        stage("service")
+    del params
+    torch.cuda.empty_cache()
+    mem = {"phase": "serve", "run": "memory", "arch": arch,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "reckoned_peak_bytes": peak, "lane_rows": rows,
+           "device_idle_share": profile["device_idle_share"],
+           "stage_s": stage_s, "run_s": time.perf_counter() - t_run,
+           "card": card_line()}
+    emit(mem)
+    return {"params": n_params, "prefill": pre, "decode": decode,
+            "engine": engine, "profile": profile, "replay": replay,
+            "service": service, "memory": mem,
+            "launches_per_decode_iteration": per_iter}
+
+
 def _counted(fn):
     """``fn()`` with every launch counter and dispatch count set to 0 just
     before it and read just after: (its result, wall s, launches,
@@ -3748,9 +4039,12 @@ def phase_serve(device) -> dict:
     ``prefill`` reaches the SSD kernel), then of phi-3-vision-4.2b through
     ``inputs_embeds``, then of deepseek-v2-236b (MLA and MoE) at
     DEEPSEEK_LAYERS layers, then of whisper-tiny (encoder-decoder), then of
-    jamba-v0.1-52b (hybrid) at JAMBA_LAYERS layers. The launch counts of
-    the result line sum every run of the path (jamba's prefill, decode
-    steps, engine run, replay and scanned runs besides): decode
+    jamba-v0.1-52b (hybrid) at JAMBA_LAYERS layers, then of the WHOLE
+    configs (glm4-9b, qwen2-1.5b, deepseek-moe-16b) at full depth. The
+    launch counts of the result line sum every run of the path (jamba's
+    prefill, decode steps, engine run, replay and scanned runs, and each
+    WHOLE config's prefill, decode steps, engine run, replay and service
+    run besides): decode
     over llama's engine runs, the measured fleet's serves, llama's scanned
     decode steps, phi-3's decode steps and kernel engine run,
     deepseek-v2's engine run, replay and service, and whisper's decode
@@ -3765,9 +4059,11 @@ def phase_serve(device) -> dict:
     deepseek = _serve_deepseek(device)
     whisper = _serve_whisper(device)
     jamba = _serve_jamba(device)
+    whole = {arch: _serve_whole(arch, device) for arch in WHOLE}
     fleet = llama["fleet"]
     return {"llama": llama, "llama_bf16": bf16, "mamba": mamba, "phi": phi,
             "deepseek": deepseek, "whisper": whisper, "jamba": jamba,
+            "whole": whole,
             "launches": {
                 "decode_attention":
                     sum(r["launches"]["decode_attention"]
@@ -3781,7 +4077,11 @@ def phase_serve(device) -> dict:
                     + llama["scanned"]["launches"]["decode_attention"]
                     + whisper["launches"]["decode_attention"]
                     + sum(jamba[k]["launches"]["decode_attention"]
-                          for k in ("decode", "engine", "replay", "scanned")),
+                          for k in ("decode", "engine", "replay", "scanned"))
+                    + sum(r[k]["launches"]["decode_attention"]
+                          for r in whole.values()
+                          for k in ("decode", "engine", "replay", "service")
+                          if r[k] is not None),
                 "flash_attention":
                     llama["prefill"]["launches"]["flash_attention"]
                     + phi["prefill"]["launches"]["flash_attention"]
@@ -3789,7 +4089,9 @@ def phase_serve(device) -> dict:
                     + llama["scanned"]["launches"]["flash_attention"]
                     + whisper["launches"]["flash_attention"]
                     + sum(jamba[k]["launches"]["flash_attention"]
-                          for k in ("prefill", "scanned")),
+                          for k in ("prefill", "scanned"))
+                    + sum(r["prefill"]["launches"]["flash_attention"]
+                          for r in whole.values()),
                 "flash_attention_bf16":
                     bf16["prefill"]["launches"]["flash_attention_bf16"],
                 "ssd_scan": sum(r[k]["launches"]["ssd_scan"]
@@ -4771,22 +5073,41 @@ def _dev_us(e) -> float:
         or getattr(e, "self_cuda_time_total", 0.0)
 
 
+def _device_records(prof) -> list:
+    """The device's records of a stopped ``torch.profiler`` run, one per
+    name (``key``, ``count``, ``self_device_time_total`` in µs), summed
+    from the trace's raw events: what ``key_averages()`` gives for them,
+    without building a record for every event first (seconds a run)."""
+    import types
+
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return [types.SimpleNamespace(key=k, count=n, self_device_time_total=us)
+            for k, (n, us) in by_name.items()]
+
+
 def _profiled(fn) -> tuple[dict, list]:
     """``fn()`` under ``torch.profiler``: wall, device busy time (the sum
     of CUDA kernel times: one stream, so no overlap), idle share
     (1 - busy / wall), launches and the kernels that take the most device
-    time; and the profiler's per-kernel records."""
+    time; and the profiler's per-kernel records. Only the CUDA activity is
+    traced: every reading here is of device kernels, and tracing each host
+    op as well stretches the wall it reads and takes minutes to read back
+    over a whole engine run (``tools/profiler_cost.py`` measures both)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = _device_records(prof)
     busy_ms = sum(_dev_us(e) for e in kern) / 1e3
     top = sorted(kern, key=_dev_us, reverse=True)[:8]
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,

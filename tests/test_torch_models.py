@@ -1,10 +1,11 @@
 """The port's dense model stack against the JAX package on identical
 weights (``params_from_jax``) and inputs, at the reduced configs.
 
-For each of six dense configs — llama3.2-3b (GQA), qwen1.5-0.5b (MHA,
+For each of seven dense configs — llama3.2-3b (GQA), qwen1.5-0.5b (MHA,
 QKV bias), qwen2-1.5b (GQA, QKV bias), gpt3-7b (LayerNorm, ungated GELU
-FFN), llama3-70b (untied head) and phi-3-vision-4.2b (MHA; its vision
-stub's ``inputs_embeds`` in place of tokens, below) — ``forward``,
+FFN), llama3-70b (untied head), phi-3-vision-4.2b (MHA; its vision
+stub's ``inputs_embeds`` in place of tokens, below) and glm4-9b (GQA,
+untied head) — ``forward``,
 ``prefill``, a padded ``extend`` and ``decode_step`` with an ``active``
 mask give logits and caches within 1e-5 of the largest reference value:
 ``impl="eager"`` against JAX ``impl="xla"``, and ``impl="kernel"`` (the
@@ -35,7 +36,7 @@ from repro_torch.core.interop import cache_from_jax, params_from_jax  # noqa: E4
 from repro_torch.kernels import ops  # noqa: E402
 
 ARCHS = ("llama3.2-3b", "qwen1.5-0.5b", "qwen2-1.5b", "gpt3-7b",
-         "llama3-70b", "phi-3-vision-4.2b")
+         "llama3-70b", "phi-3-vision-4.2b", "glm4-9b")
 IMPLS = (("eager", "xla"), ("kernel", "pallas"))
 REL = 1e-5
 CPU = "cpu"
