@@ -39,6 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..serving.scheduler import Scheduler, get_scheduler
 from .bo import BOResult, HardwarePoint, bo_search
 from .encoding import (
@@ -351,12 +352,13 @@ def search_mapping(
     # group batches by execution-graph structure
     groups: dict[tuple, list[int]] = {}
     graphs, tables = [], []
-    for i, (batch, mb) in enumerate(zip(batches, micro_batches)):
-        g, t = get_graph_and_tables(spec, batch, hw, mb, n_blocks)
-        graphs.append(g)
-        tables.append(t)
-        key = (g.rows, g.n_cols)
-        groups.setdefault(key, []).append(i)
+    with spans.span("search.graphs_tables"):
+        for i, (batch, mb) in enumerate(zip(batches, micro_batches)):
+            g, t = get_graph_and_tables(spec, batch, hw, mb, n_blocks)
+            graphs.append(g)
+            tables.append(t)
+            key = (g.rows, g.n_cols)
+            groups.setdefault(key, []).append(i)
 
     # all structurally-identical batches of a group are evaluated in ONE
     # device call per generation (batches x population)
@@ -553,8 +555,11 @@ def _search_rounds(ctx: _SearchContext) -> MappingSearchOutput:
                                      cs.rel_tol)
             if adopt:
                 encodings[key] = res.best
-                results = ctx.oracle_latencies(key, res.best) if rnd == 0 \
-                    else cand
+                if rnd == 0:
+                    with spans.span("search.finalise"):
+                        results = ctx.oracle_latencies(key, res.best)
+                else:
+                    results = cand
                 for i, r in zip(idxs, results):
                     per_batch[i] = r
                 if stream_fitness:
@@ -587,11 +592,12 @@ def _search_rounds(ctx: _SearchContext) -> MappingSearchOutput:
                       if adopted is None or not _same_encoding(e, adopted))
         group_elites[key] = es
 
-    return _finalise(
-        ctx, encodings, ga_results, per_batch,
-        mode=cs.mode, rounds=rounds_done,
-        round_scores=round_scores, converged=converged,
-        ga_evaluations=evals, group_elites=group_elites)
+    with spans.span("search.finalise"):
+        return _finalise(
+            ctx, encodings, ga_results, per_batch,
+            mode=cs.mode, rounds=rounds_done,
+            round_scores=round_scores, converged=converged,
+            ga_evaluations=evals, group_elites=group_elites)
 
 
 def _search_joint(ctx: _SearchContext) -> MappingSearchOutput:

@@ -24,6 +24,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from .. import spans
 from .encoding import (
     MappingEncoding,
     StackedPopulation,
@@ -430,38 +431,44 @@ def ga_search(
     history = [float(scores.min())]
 
     for gen in range(cfg.generations):
-        progress = gen / max(cfg.generations - 1, 1)
-        order = np.argsort(scores)
-        elite_seg = pop.segmentation[order[: cfg.elite]].copy()
-        elite_l2c = pop.layer_to_chip[order[: cfg.elite]].copy()
+        with spans.span("ga.breed"):
+            progress = gen / max(cfg.generations - 1, 1)
+            order = np.argsort(scores)
+            elite_seg = pop.segmentation[order[: cfg.elite]].copy()
+            elite_l2c = pop.layer_to_chip[order[: cfg.elite]].copy()
 
-        n_child = max(0, cfg.population - cfg.elite)
-        p1 = tournament_select(rng, scores, cfg.tournament_k, n_child)
-        p2 = tournament_select(rng, scores, cfg.tournament_k, n_child)
-        c_seg, c_l2c = crossover_population(
-            rng, pop.segmentation[p1], pop.layer_to_chip[p1],
-            pop.segmentation[p2], pop.layer_to_chip[p2])
-        do_cx = rng.random(n_child) < cfg.crossover_rate
-        c_seg = np.where(do_cx[:, None], c_seg, pop.segmentation[p1])
-        c_l2c = np.where(do_cx[:, None, None], c_l2c, pop.layer_to_chip[p1])
-        children = StackedPopulation(c_seg, c_l2c)
-        mutate_population(rng, children, n_chips, progress,
-                          rate=cfg.mutation_rate)
-        if cfg.verify:
-            # legality pre-filter: replace illegal offspring with their
-            # first parent (legal by induction) BEFORE pricing; no rng is
-            # consumed, so a zero-rejection run is bit-identical to
-            # verify=False
-            from ..analysis.mapping import population_legal_mask
-            bad = np.flatnonzero(~population_legal_mask(children, n_chips))
-            if bad.size:
-                children.segmentation[bad] = pop.segmentation[p1[bad]]
-                children.layer_to_chip[bad] = pop.layer_to_chip[p1[bad]]
-                n_rejected += int(bad.size)
+            n_child = max(0, cfg.population - cfg.elite)
+            with spans.span("ga.select"):
+                p1 = tournament_select(rng, scores, cfg.tournament_k, n_child)
+                p2 = tournament_select(rng, scores, cfg.tournament_k, n_child)
+            with spans.span("ga.crossover"):
+                c_seg, c_l2c = crossover_population(
+                    rng, pop.segmentation[p1], pop.layer_to_chip[p1],
+                    pop.segmentation[p2], pop.layer_to_chip[p2])
+                do_cx = rng.random(n_child) < cfg.crossover_rate
+                c_seg = np.where(do_cx[:, None], c_seg, pop.segmentation[p1])
+                c_l2c = np.where(do_cx[:, None, None], c_l2c,
+                                 pop.layer_to_chip[p1])
+            children = StackedPopulation(c_seg, c_l2c)
+            with spans.span("ga.mutate"):
+                mutate_population(rng, children, n_chips, progress,
+                                  rate=cfg.mutation_rate)
+            if cfg.verify:
+                # legality pre-filter: replace illegal offspring with their
+                # first parent (legal by induction) BEFORE pricing; no rng
+                # is consumed, so a zero-rejection run is bit-identical to
+                # verify=False
+                from ..analysis.mapping import population_legal_mask
+                bad = np.flatnonzero(~population_legal_mask(children,
+                                                            n_chips))
+                if bad.size:
+                    children.segmentation[bad] = pop.segmentation[p1[bad]]
+                    children.layer_to_chip[bad] = pop.layer_to_chip[p1[bad]]
+                    n_rejected += int(bad.size)
 
-        pop = StackedPopulation(
-            np.concatenate([elite_seg, children.segmentation]),
-            np.concatenate([elite_l2c, children.layer_to_chip]))
+            pop = StackedPopulation(
+                np.concatenate([elite_seg, children.segmentation]),
+                np.concatenate([elite_l2c, children.layer_to_chip]))
         scores = score_population(eval_fn, pop)
         n_eval += len(pop)
         history.append(float(scores.min()))

@@ -10,12 +10,17 @@ stack: :func:`cache_stats` merges
   (``torch_evaluator.device_table_cache_stats``) and their bytes per
   device;
 * the process-wide serving counters (``serving.stats``): engine runs,
-  iterations, prefill/decode tokens, peak slots and queue depth.
+  iterations, prefill/decode tokens, peak slots and queue depth;
+* under ``"spans"``, the summary of the latest span recording
+  (``repro_torch.spans.summary()``: per span name its count, host seconds,
+  summed counts and intervals on the profiler's clock; empty until
+  ``spans.recording()`` has run).
 
 The result is JSON-serialisable.
 """
 from __future__ import annotations
 
+from .. import spans
 from ..serving import stats as serving_stats
 from . import timing, torch_evaluator
 
@@ -29,4 +34,5 @@ def cache_stats() -> dict:
         "device_resident_bytes": per_device,
         "device_resident_bytes_total": sum(per_device.values()),
         "serving": serving_stats.snapshot(),
+        "spans": spans.summary(),
     }

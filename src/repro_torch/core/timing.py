@@ -56,6 +56,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import spans
 from ..kernels import mapping_eval as _me
 from ..kernels import ops
 
@@ -545,6 +546,7 @@ def get_cost_tables(graph, graph_key, hw):
                 _TABLE_CACHE.popitem(last=False)         # LRU eviction
             t = CostTables.build(graph, hw)
             _TABLE_CACHE[key] = t
+            spans.add(built=1)
         else:
             _STATS["table_hits"] += 1
             _TABLE_CACHE.move_to_end(key)                # refresh hot entry

@@ -48,6 +48,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import spans
 from ..kernels import mapping_eval as _me
 from ..kernels import ops
 from .encoding import ScheduledOrderCache, as_stacked
@@ -450,28 +451,30 @@ class GroupPopulationEvaluator:
     device: object = None
 
     def __post_init__(self):
-        g0 = self.graphs[0]
-        assert all(g.rows == g0.rows and g.n_cols == g0.n_cols
-                   for g in self.graphs), "group batches must share (rows, M)"
-        # the structural pass is shared, so the dependency structure must be
-        # identical too — equal shape alone does not guarantee it
-        preds0 = [(m.pred_lo, m.pred_hi) for m in g0.layers]
-        assert all([(m.pred_lo, m.pred_hi) for m in g.layers] == preds0
-                   for g in self.graphs), \
-            "group batches must share predecessor intervals"
-        self._devices = resolve_devices(self.device)
-        self._device = self._devices[0]
-        self._backend, self._grid_order = _resolve_backend(self.backend)
-        self._statics = {}
-        for dev in self._devices:
-            if dev not in self._statics:
-                self._statics[dev] = dict(
-                    _shared_statics(g0, self.hw, dev),
-                    **_stacked_device_tables(tuple(self.tables), dev))
-        self._static = self._statics[self._device]
-        self._n_chips = self.hw.n_chiplets
-        self._order_cache = ScheduledOrderCache(g0.rows, g0.n_cols)
-        self._scales = np.array([g.scale for g in self.graphs])
+        with spans.span("search.evaluator_build"):
+            g0 = self.graphs[0]
+            assert all(g.rows == g0.rows and g.n_cols == g0.n_cols
+                       for g in self.graphs), \
+                "group batches must share (rows, M)"
+            # the structural pass is shared, so the dependency structure
+            # must be identical too — equal shape alone does not guarantee it
+            preds0 = [(m.pred_lo, m.pred_hi) for m in g0.layers]
+            assert all([(m.pred_lo, m.pred_hi) for m in g.layers] == preds0
+                       for g in self.graphs), \
+                "group batches must share predecessor intervals"
+            self._devices = resolve_devices(self.device)
+            self._device = self._devices[0]
+            self._backend, self._grid_order = _resolve_backend(self.backend)
+            self._statics = {}
+            for dev in self._devices:
+                if dev not in self._statics:
+                    self._statics[dev] = dict(
+                        _shared_statics(g0, self.hw, dev),
+                        **_stacked_device_tables(tuple(self.tables), dev))
+            self._static = self._statics[self._device]
+            self._n_chips = self.hw.n_chiplets
+            self._order_cache = ScheduledOrderCache(g0.rows, g0.n_cols)
+            self._scales = np.array([g.scale for g in self.graphs])
 
     @property
     def n_batches(self) -> int:
@@ -505,22 +508,27 @@ class GroupPopulationEvaluator:
         different cards overlap; output k, whose population axis is
         ``axes[k]``, is gathered onto the first device and sliced back to
         the true population."""
-        orders = np.asarray(self._order_cache.orders(pop.segmentation))
-        l2c = np.asarray(pop.layer_to_chip)
-        if len(self._devices) == 1:
-            return body(_long(orders, self._device), _long(l2c, self._device),
-                        self._static)
-        orders, l2c, p0 = pad_population(orders, l2c, len(self._devices))
-        n = orders.shape[0] // len(self._devices)
-        ins = [(_long(orders[i * n:(i + 1) * n], dev),
-                _long(l2c[i * n:(i + 1) * n], dev))
-               for i, dev in enumerate(self._devices)]
-        outs = [body(o, lc, self._statics[dev])
-                for (o, lc), dev in zip(ins, self._devices)]
-        return tuple(
-            torch.cat([out[k].to(self._device) for out in outs],
-                      dim=ax).narrow(ax, 0, p0)
-            for k, ax in enumerate(axes))
+        with spans.span("evaluator.prepare"):
+            orders = np.asarray(self._order_cache.orders(pop.segmentation))
+            l2c = np.asarray(pop.layer_to_chip)
+            if len(self._devices) == 1:
+                ins = [(_long(orders, self._device), _long(l2c, self._device))]
+            else:
+                orders, l2c, p0 = pad_population(orders, l2c,
+                                                 len(self._devices))
+                n = orders.shape[0] // len(self._devices)
+                ins = [(_long(orders[i * n:(i + 1) * n], dev),
+                        _long(l2c[i * n:(i + 1) * n], dev))
+                       for i, dev in enumerate(self._devices)]
+        with spans.span("evaluator.issue"):
+            outs = [body(o, lc, self._statics[dev])
+                    for (o, lc), dev in zip(ins, self._devices)]
+            if len(self._devices) == 1:
+                return outs[0]
+            return tuple(
+                torch.cat([out[k].to(self._device) for out in outs],
+                          dim=ax).narrow(ax, 0, p0)
+                for k, ax in enumerate(axes))
 
     def evaluate_population(self, population
                             ) -> tuple[np.ndarray, np.ndarray]:
@@ -528,8 +536,9 @@ class GroupPopulationEvaluator:
         ((B, P) latency_s, (B, P) energy_j)."""
         lat, en_pj = self._run(population)
         scale = self._scales[:, None]
-        return (lat.cpu().numpy().astype(np.float64) * scale,
-                en_pj.cpu().numpy().astype(np.float64) * 1e-12 * scale)
+        with spans.span("evaluator.readback"):
+            return (lat.cpu().numpy().astype(np.float64) * scale,
+                    en_pj.cpu().numpy().astype(np.float64) * 1e-12 * scale)
 
     def timing_matrix(self, population) -> TimingMatrix:
         """Full (B, P, T) timing matrix, block scale applied."""

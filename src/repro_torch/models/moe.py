@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import tuning
+from .. import spans, tuning
 from .layers import Dense, _normal, _param, dense, swiglu
 
 
@@ -95,18 +95,21 @@ def apply_moe(p: MoE, x, cfg, capacity_factor: float | None = None):
     ``tuning.moe_capacity_factor()``."""
     b, l, d = x.shape
     e = cfg.moe.n_routed
-    xt = x.reshape(b * l, d)
-    _, _, g_e, idx_e = route(p, xt, cfg, capacity_factor)
-    cap = idx_e.shape[1]
-    flat = idx_e.reshape(-1)
-    xe = xt[flat].reshape(e, cap, d)
-    h = torch.bmm(xe, p.wi)                                  # [E, C, 2 de]
-    gate_h, up_h = torch.chunk(h, 2, dim=-1)
-    ye = torch.bmm(swiglu(gate_h, up_h), p.wo)               # [E, C, d]
-    ye = ye * g_e[..., None].to(ye.dtype)
-    y = torch.zeros_like(xt).index_add_(0, flat,
-                                        ye.reshape(e * cap, d).to(xt.dtype))
-    if cfg.moe.n_shared > 0:
-        sg, su = torch.chunk(dense(p.shared_wi, xt), 2, dim=-1)
-        y = y + dense(p.shared_wo, swiglu(sg, su))
-    return y.reshape(b, l, d)
+    with spans.span("model.moe"):
+        xt = x.reshape(b * l, d)
+        _, _, g_e, idx_e = route(p, xt, cfg, capacity_factor)
+        cap = idx_e.shape[1]
+        # rows through the experts' products against rows the tokens chose
+        spans.add(expert_rows=e * cap, routed_rows=b * l * cfg.moe.top_k)
+        flat = idx_e.reshape(-1)
+        xe = xt[flat].reshape(e, cap, d)
+        h = torch.bmm(xe, p.wi)                              # [E, C, 2 de]
+        gate_h, up_h = torch.chunk(h, 2, dim=-1)
+        ye = torch.bmm(swiglu(gate_h, up_h), p.wo)           # [E, C, d]
+        ye = ye * g_e[..., None].to(ye.dtype)
+        y = torch.zeros_like(xt).index_add_(
+            0, flat, ye.reshape(e * cap, d).to(xt.dtype))
+        if cfg.moe.n_shared > 0:
+            sg, su = torch.chunk(dense(p.shared_wi, xt), 2, dim=-1)
+            y = y + dense(p.shared_wo, swiglu(sg, su))
+        return y.reshape(b, l, d)

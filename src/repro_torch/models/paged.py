@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..core.timing import resolve_device
 from .attention import init_attn_cache
 from .mamba2 import init_mamba_cache
@@ -77,16 +78,20 @@ def gather_paged_cache(pools, tables, lens, slots):
     """
     n, t = tables.shape
     cache = []
-    for layer in pools:
-        if is_slot_layer(layer):
-            d = {k: v[slots] for k, v in layer.items()}
-        else:
-            d = {}
-            for k, pool in layer.items():
-                g = pool[tables]                       # [N, T, bl, ...]
-                d[k] = g.reshape((n, t * pool.shape[1]) + pool.shape[2:])
-        d["len"] = lens
-        cache.append(d)
+    with spans.span("paged.gather"):
+        for layer in pools:
+            if is_slot_layer(layer):
+                d = {k: v[slots] for k, v in layer.items()}
+            else:
+                d = {}
+                for k, pool in layer.items():
+                    g = pool[tables]                   # [N, T, bl, ...]
+                    d[k] = g.reshape((n, t * pool.shape[1]) + pool.shape[2:])
+            d["len"] = lens
+            cache.append(d)
+        if spans.active():
+            spans.add(bytes=sum(v.nbytes for d in cache for k, v in d.items()
+                                if k != "len"))
     return cache
 
 
@@ -105,7 +110,8 @@ def paged_decode(params, cfg: ModelConfig, tokens, pools, tables, lens,
     cache = gather_paged_cache(pools, tables, lens, slots)
     logits, new_cache = decode_step(params, cfg, tokens, cache, impl=impl,
                                     device=device)
-    _scatter_decode(pools, new_cache, tables, lens, slots, block_len)
+    with spans.span("paged.write_back"):
+        _scatter_decode(pools, new_cache, tables, lens, slots, block_len)
     return torch.argmax(logits, -1), pools
 
 

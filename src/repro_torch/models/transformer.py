@@ -65,6 +65,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..core.timing import resolve_device
 from .attention import (
     Attention,
@@ -537,8 +538,9 @@ def extend(params, cfg: ModelConfig, tokens, cache, impl="kernel",
         for i, (blk, c) in enumerate(zip(params.blocks, cache)):
             h = _norm(cfg, blk.norm1, x)
             if cfg.mixer_kind(i) == "attn":
-                h, c = attention_extend(blk.attn, h, cfg, rope, c, impl=impl,
-                                        length=adv)
+                with spans.span("model.attention"):
+                    h, c = attention_extend(blk.attn, h, cfg, rope, c,
+                                            impl=impl, length=adv)
             else:
                 h, c = mamba_extend(blk.mamba, h, cfg, c, impl=impl,
                                     length=adv)
@@ -614,7 +616,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, impl="kernel",
             old = None if active is None else _save_slots(c)
             h = _norm(cfg, blk.norm1, x)
             if cfg.mixer_kind(i) == "attn":
-                h, c = attention_decode(blk.attn, h, cfg, rope, c, impl=impl)
+                with spans.span("model.attention"):
+                    h, c = attention_decode(blk.attn, h, cfg, rope, c,
+                                            impl=impl)
             else:
                 h, c = mamba_decode(blk.mamba, h, cfg, c, impl=impl)
             new_cache.append(_mask_cache(old, c, active))

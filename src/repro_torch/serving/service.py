@@ -47,6 +47,7 @@ from ..core.workload import DECODE, PREFILL, Request
 from ..models.attention import check_impl, refuse_int8_serving
 from .clock import IterationClock, WallClock
 from .paged_cache import PagedKVCache, TransferBufferPool
+from .. import spans
 from .scheduler import (
     IterationPlan,
     ServeRequest,
@@ -316,58 +317,62 @@ class AsyncLLMService:
         return torch.tensor(buf, device=self.device)
 
     def _run_prefill_chunk(self, req: ServeRequest, chunk_len: int) -> int:
-        slot = req.slot
-        chunk = req.prompt[req.prefilled: req.prefilled + chunk_len]
-        n = len(chunk)
-        c = _bucket(n)
-        buf = self.xfer.acquire((c,), np.int32)
-        buf[:] = 0
-        buf[:n] = chunk
-        fn = self._prefill_entry(c)
-        tok, self.kv.pools = fn(
-            self.params, self._to_device(buf), self.kv.pools,
-            self._to_device(self.kv.tables_np[slot]),
-            int(self.kv.lens_np[slot]), slot, n)
-        self.xfer.release(buf)
-        req.prefilled += n
-        self.kv.lens_np[slot] += n
-        stats.bump("prefill_tokens", n)
-        return int(tok)
+        with spans.span("service.prefill_chunk"):
+            slot = req.slot
+            chunk = req.prompt[req.prefilled: req.prefilled + chunk_len]
+            n = len(chunk)
+            c = _bucket(n)
+            buf = self.xfer.acquire((c,), np.int32)
+            buf[:] = 0
+            buf[:n] = chunk
+            fn = self._prefill_entry(c)
+            tok, self.kv.pools = fn(
+                self.params, self._to_device(buf), self.kv.pools,
+                self._to_device(self.kv.tables_np[slot]),
+                int(self.kv.lens_np[slot]), slot, n)
+            self.xfer.release(buf)
+            req.prefilled += n
+            self.kv.lens_np[slot] += n
+            stats.bump("prefill_tokens", n)
+            with spans.span("service.readback"):
+                return int(tok)
 
     # repro-lint: hot
     def _run_decode(self, decode: list) -> None:
-        n = len(decode)
-        b = _bucket(n)
-        t = self.kv.blocks_per_seq
-        tok_buf = self.xfer.acquire((b,), np.int32)
-        tbl_buf = self.xfer.acquire((b, t), np.int32)
-        len_buf = self.xfer.acquire((b,), np.int32)
-        slot_buf = self.xfer.acquire((b,), np.int32)
-        tok_buf[:] = 0
-        tbl_buf[:] = 0                      # null block: pad-lane sink
-        len_buf[:] = 0
-        slot_buf[:] = self.kv.scratch_slot  # pad-lane recurrent-state sink
-        for j, r in enumerate(decode):
-            # warm requests have no generated token yet at their first
-            # decode: seed with the prefault's final prefill token
-            tok_buf[j] = r.generated[-1] if r.generated \
-                else self._warm_seed[r.rid]
-            tbl_buf[j] = self.kv.tables_np[r.slot]
-            len_buf[j] = self.kv.lens_np[r.slot]
-            slot_buf[j] = r.slot
-        fn = self._decode_entry(b)
-        toks, self.kv.pools = fn(
-            self.params, self._to_device(tok_buf), self.kv.pools,
-            self._to_device(tbl_buf), self._to_device(len_buf),
-            self._to_device(slot_buf))
-        # repro-lint: disable=RT002 -- boundary: the scheduler reads the tokens on the host
-        toks = toks.cpu().numpy()
-        for j, r in enumerate(decode):
-            r.generated.append(int(toks[j]))
-            self.kv.lens_np[r.slot] += 1
-        for buf in (tok_buf, tbl_buf, len_buf, slot_buf):
-            self.xfer.release(buf)
-        stats.bump("decode_tokens", n)
+        with spans.span("service.decode"):
+            n = len(decode)
+            b = _bucket(n)
+            t = self.kv.blocks_per_seq
+            tok_buf = self.xfer.acquire((b,), np.int32)
+            tbl_buf = self.xfer.acquire((b, t), np.int32)
+            len_buf = self.xfer.acquire((b,), np.int32)
+            slot_buf = self.xfer.acquire((b,), np.int32)
+            tok_buf[:] = 0
+            tbl_buf[:] = 0                      # null block: pad-lane sink
+            len_buf[:] = 0
+            slot_buf[:] = self.kv.scratch_slot  # pad-lane recurrent-state sink
+            for j, r in enumerate(decode):
+                # warm requests have no generated token yet at their first
+                # decode: seed with the prefault's final prefill token
+                tok_buf[j] = r.generated[-1] if r.generated \
+                    else self._warm_seed[r.rid]
+                tbl_buf[j] = self.kv.tables_np[r.slot]
+                len_buf[j] = self.kv.lens_np[r.slot]
+                slot_buf[j] = r.slot
+            fn = self._decode_entry(b)
+            toks, self.kv.pools = fn(
+                self.params, self._to_device(tok_buf), self.kv.pools,
+                self._to_device(tbl_buf), self._to_device(len_buf),
+                self._to_device(slot_buf))
+            with spans.span("service.readback"):
+                # repro-lint: disable=RT002 -- boundary: the scheduler reads the tokens on the host
+                toks = toks.cpu().numpy()
+            for j, r in enumerate(decode):
+                r.generated.append(int(toks[j]))
+                self.kv.lens_np[r.slot] += 1
+            for buf in (tok_buf, tbl_buf, len_buf, slot_buf):
+                self.xfer.release(buf)
+            stats.bump("decode_tokens", n)
 
     # -- the service loop ---------------------------------------------------
 
@@ -436,93 +441,96 @@ class AsyncLLMService:
         batches: list[list[Request]] = []
         it = 0
         while it < self.config.max_iters:
-            await self._deliver(it, pending)
-            if not (pending or waiting or running):
-                if (self._producer_done or self._producer_task.done()) \
-                        and self._queue.empty():
-                    break
-                if self.clock.deterministic:
-                    nxt = self._next_arrival
-                    if nxt is not None and nxt > it:
-                        it = int(nxt)
+            with spans.span("service.iteration"):
+                await self._deliver(it, pending)
+                if not (pending or waiting or running):
+                    if (self._producer_done or self._producer_task.done()) \
+                            and self._queue.empty():
+                        break
+                    if self.clock.deterministic:
+                        nxt = self._next_arrival
+                        if nxt is not None and nxt > it:
+                            it = int(nxt)
+                            continue
+                        await asyncio.sleep(0)
                         continue
-                    await asyncio.sleep(0)
+                    pending.append(await self._queue.get())
                     continue
-                pending.append(await self._queue.get())
-                continue
-            # warm arrivals admit through the shared loop with the
-            # service's richer admission (block reservation + context
-            # prefault) substituted for the planner's bare try_admit;
-            # the blocked counter resets FIRST so a block-starved warm
-            # head shows up in this iteration's stats
-            self._iter_blocked = 0
-            admit_arrivals(pending, waiting, running, self.free, it,
-                           admit=lambda r, _f: self._admit(r, it,
-                                                           prefault=True))
-            free_eff = self._schedulable_slots(waiting)
-            plan = scheduler.plan(waiting, running, free_eff)
-            prefill = [(q, n) for q, n in plan.prefill
-                       if self._admit(q, it)]
-            plan = IterationPlan(prefill=prefill, decode=list(plan.decode))
-            if not plan.prefill and not plan.decode:
-                if not waiting and not running and pending:
-                    nxt = pending[0].arrived_iter
-                    if nxt > it:
-                        it = int(nxt)      # fast-forward the idle gap
-                        continue
-                it += 1
-                if not self.clock.deterministic:
-                    await asyncio.sleep(0)
-                continue
+                # warm arrivals admit through the shared loop with the
+                # service's richer admission (block reservation + context
+                # prefault) substituted for the planner's bare try_admit;
+                # the blocked counter resets FIRST so a block-starved warm
+                # head shows up in this iteration's stats
+                with spans.span("service.schedule"):
+                    self._iter_blocked = 0
+                    admit_arrivals(pending, waiting, running, self.free, it,
+                                   admit=lambda r, _f: self._admit(r, it,
+                                                                   prefault=True))
+                    free_eff = self._schedulable_slots(waiting)
+                    plan = scheduler.plan(waiting, running, free_eff)
+                    prefill = [(q, n) for q, n in plan.prefill
+                               if self._admit(q, it)]
+                    plan = IterationPlan(prefill=prefill,
+                                         decode=list(plan.decode))
+                if not plan.prefill and not plan.decode:
+                    if not waiting and not running and pending:
+                        nxt = pending[0].arrived_iter
+                        if nxt > it:
+                            it = int(nxt)      # fast-forward the idle gap
+                            continue
+                    it += 1
+                    if not self.clock.deterministic:
+                        await asyncio.sleep(0)
+                    continue
 
-            # record the batch with pre-iteration state (plan_rollout's
-            # yield-time convention), then execute it
-            queue_depth = len(waiting) + self._queue.qsize()
-            batch = [Request(PREFILL, n, q.prefilled + n)
-                     for q, n in plan.prefill]
-            batch += [Request(DECODE, 1, r.prefilled + len(r.generated))
-                      for r in plan.decode]
-            # warm first-token convention (the planner's): a warm
-            # request's first scheduled decode is its first token
-            newly_first_warm = [
-                r.rid for r in plan.decode
-                if r.rid in self._warm_rids
-                and r.rid not in self._warm_first_b]
-            for rid in newly_first_warm:
-                self._warm_first_b[rid] = len(batches)
-            t0 = time.perf_counter()
-            n_prefill_tok = 0
-            for req, chunk_len in plan.prefill:
-                tok = self._run_prefill_chunk(req, chunk_len)
-                n_prefill_tok += chunk_len
-                if req.prefill_done:
-                    req.generated.append(tok)
-                    complete_prefill(req, it, waiting, running)
-                    self._stamp(req.rid, "first_s")
-            if plan.decode:
-                self._run_decode(plan.decode)
+                # record the batch with pre-iteration state (plan_rollout's
+                # yield-time convention), then execute it
+                queue_depth = len(waiting) + self._queue.qsize()
+                batch = [Request(PREFILL, n, q.prefilled + n)
+                         for q, n in plan.prefill]
+                batch += [Request(DECODE, 1, r.prefilled + len(r.generated))
+                          for r in plan.decode]
+                # warm first-token convention (the planner's): a warm
+                # request's first scheduled decode is its first token
+                newly_first_warm = [
+                    r.rid for r in plan.decode
+                    if r.rid in self._warm_rids
+                    and r.rid not in self._warm_first_b]
                 for rid in newly_first_warm:
-                    self._stamp(rid, "first_s")
-            owned = {r.rid: r.slot for r in running}
-            n_done = len(finished)
-            retire_finished(running, finished, self.free, it)
-            for r in finished[n_done:]:
-                self.kv.release(owned[r.rid], r.rid)
-                self._stamp(r.rid, "done_s")
-            it_stats.append(IterationStats(
-                it, n_prefill_tok, len(plan.decode),
-                # repro-lint: disable=RT006 -- prefill and decode read tokens back first
-                time.perf_counter() - t0,
-                queue_depth=queue_depth,
-                slots_used=self.config.max_batch - len(self.free),
-                blocks_used=self.kv.allocator.blocks_used,
-                blocked_admissions=self._iter_blocked))
-            kept_its.append(it)
-            batches.append(batch)
-            stats.bump("iterations")
-            stats.high_water("peak_slots_used",
-                             self.config.max_batch - len(self.free))
-            it += 1
+                    self._warm_first_b[rid] = len(batches)
+                t0 = time.perf_counter()
+                n_prefill_tok = 0
+                for req, chunk_len in plan.prefill:
+                    tok = self._run_prefill_chunk(req, chunk_len)
+                    n_prefill_tok += chunk_len
+                    if req.prefill_done:
+                        req.generated.append(tok)
+                        complete_prefill(req, it, waiting, running)
+                        self._stamp(req.rid, "first_s")
+                if plan.decode:
+                    self._run_decode(plan.decode)
+                    for rid in newly_first_warm:
+                        self._stamp(rid, "first_s")
+                owned = {r.rid: r.slot for r in running}
+                n_done = len(finished)
+                retire_finished(running, finished, self.free, it)
+                for r in finished[n_done:]:
+                    self.kv.release(owned[r.rid], r.rid)
+                    self._stamp(r.rid, "done_s")
+                it_stats.append(IterationStats(
+                    it, n_prefill_tok, len(plan.decode),
+                    # repro-lint: disable=RT006 -- prefill and decode read tokens back first
+                    time.perf_counter() - t0,
+                    queue_depth=queue_depth,
+                    slots_used=self.config.max_batch - len(self.free),
+                    blocks_used=self.kv.allocator.blocks_used,
+                    blocked_admissions=self._iter_blocked))
+                kept_its.append(it)
+                batches.append(batch)
+                stats.bump("iterations")
+                stats.high_water("peak_slots_used",
+                                 self.config.max_batch - len(self.free))
+                it += 1
 
         fin_rids = {r.rid for r in finished}
         unfinished = [r for r in reqs if r.rid not in fin_rids]

@@ -40,8 +40,6 @@ def _zero() -> dict:
         # truncation / fairness
         "truncated_runs": 0,
         "unfinished_requests": 0,
-        "preempts": 0,
-        "evictions": 0,
     }
 
 
